@@ -12,7 +12,16 @@ Phases, any failure exits non-zero:
      L=4096 local-map points on a coherent synthetic scene; every kernel must
      have launched, each stream must land on its ground-truth pose, and the
      same inputs through the port on the CPU must agree;
-  5. times: CUDA-event medians of 20 runs after warm-up.
+  map slice: the per-frame step the tracker runs, fused_track_frame_image,
+     over a MapState at the tracker's default capacities (1536 keyframes,
+     2000 keypoint slots, 200,000 points; local subset 16384, candidate cap
+     8192), along a session built by testing.build_depth_session: every
+     frame accepted within 1 cm / 0.2 deg of ground truth, both branches
+     taken, both kernels launched on every frame, and one mid-session state
+     through the port on the CPU agreeing with the card;
+  5. times: CUDA-event medians of 20 runs after warm-up, for the kernels,
+     track_step_batched and fused_track_frame_image (with its launches and
+     device->host reads per frame).
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -24,13 +33,17 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import tpuslam_torch._build as build
-from tpuslam_torch.convert import array_to_tensor
+from tpuslam_torch.convert import array_to_tensor, map_to_numpy, map_to_torch
 from tpuslam_torch.geometry.camera import PinholeCamera
+from tpuslam_torch.mapstate.core import FrameFeatures
 from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain
 from tpuslam_torch.ops.image import build_pyramid
 from tpuslam_torch.ops.orb import ORBConfig, detect_batched, extract_orb_batched
@@ -40,10 +53,13 @@ from tpuslam_torch.ops.patches import (
     gather_patches,
     gather_patches_plain,
 )
+from tpuslam_torch.pipeline import steps
+from tpuslam_torch.pipeline.steps import fused_track_frame_image, local_keyframe_mask
 from tpuslam_torch.pipeline.track_step import track_step_batched
 from tpuslam_torch.testing import (
     TRACK_STEP_ARGS,
     StepWallScene,
+    build_depth_session,
     coherent_track_inputs,
     orbit_trajectory,
     pose_errors,
@@ -55,26 +71,49 @@ CFG = ORBConfig(n_features=N_FEATURES)
 REPS = 20
 POSE_TOL = 1e-3  # CUDA vs CPU pose: float32 sums in another order
 
+# Map slice: the tracker's default capacities (tpuslam/pipeline/tracker.py
+# TrackerConfig, kp_capacity = 2 x n_features, _local_subset_cap, _cand_cap).
+MAP = dict(K=1536, N_cap=2 * N_FEATURES, P=200_000)
+MAP_STEP = dict(max_local_pts=16384, cand_cap=8192, min_inliers_motion=10, accept_thr=30.0)
+MAP_FRAMES, MAP_KF_EVERY = 161, 4  # 41 keyframes, more points than the local subset holds
+MAP_POSES = dict(step=0.02, yaw_rate=0.002, x0=-1.6)  # the view stays on the walls
+# Keyframes come at frames 4, 8, ...: 81 and 157 take the reference branch,
+# 82 and 158 the motion model. The CPU check takes the first state with a
+# velocity, the times the last.
+MAP_SNAP = (81, 82, 157, 158)
+MAP_T_TOL, MAP_R_TOL = 0.01, 0.2  # per frame, against ground truth (m, deg)
+INT_FIELDS = [steps.FUSED_ACCEPT, steps.FUSED_INITIAL_OK, steps.FUSED_USED_MM,
+              steps.FUSED_N_TRACKED, *range(steps.FUSED_GATES, steps.FUSED_GATES + 4),
+              steps.FUSED_NM]
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, CUDA events around each call."""
+def cuda_ms_turns(fns, reps: int = REPS, warmup: int = 3) -> list[float]:
+    """Median device time in ms of each fn(), CUDA events around each call.
+    The fns take turns (a b, b a, a b, ...), so a drift in the speed of the
+    shared host falls on each of them alike."""
     for _ in range(warmup):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    times = [[] for _ in fns]
+    for r in range(reps):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    return cuda_ms_turns([fn], reps, warmup)[0]
 
 
 def phase_device() -> str:
@@ -179,6 +218,192 @@ def phase_slice(inp: dict):
     return args, launches
 
 
+def _fused(st, img, inv_sigma2, has_vel=None):
+    """fused_track_frame_image on a session state, as the tracker calls it."""
+    has_vel = st.has_vel if has_vel is None else has_vel
+    vel_R, vel_t = (st.vel_R, st.vel_t) if has_vel else (
+        torch.eye(3, device=img.device), torch.zeros(3, device=img.device))
+    return fused_track_frame_image(
+        CAM, CFG, st.m, img, st.last_feats, st.last_obs, st.last_R, st.last_t,
+        vel_R, vel_t, has_vel, st.ref_kf, inv_sigma2.to(img.device),
+        MAP_STEP["accept_thr"], min_inliers_motion=MAP_STEP["min_inliers_motion"],
+        max_local_pts=MAP_STEP["max_local_pts"], cand_cap=MAP_STEP["cand_cap"],
+    )
+
+
+def _state_to_cpu(st):
+    """A session state through numpy onto the CPU (map_to_numpy/map_to_torch)."""
+    return st._replace(
+        m=map_to_torch(map_to_numpy(st.m)),
+        last_feats=FrameFeatures(*(x.cpu() for x in st.last_feats)),
+        last_obs=st.last_obs.cpu(), last_R=st.last_R.cpu(), last_t=st.last_t.cpu(),
+        vel_R=st.vel_R.cpu(), vel_t=st.vel_t.cpu(),
+    )
+
+
+def phase_map(scene: StepWallScene, device: str = "cuda"):
+    """The map slice: a session at the tracker's default capacities, every
+    frame checked, then one mid-session state on the CPU against the card.
+    Returns (session, the frames of the first and the last snapshot with
+    a velocity, launches)."""
+    poses = orbit_trajectory(MAP_FRAMES, **MAP_POSES)
+    per_frame = []
+    seen = {"fast_nms": 0, "gather_patches": 0}
+
+    def on_frame(i, rec):
+        now = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+        per_frame.append({k: now[k] - seen[k] for k in now})
+        seen.update(now)
+
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    t0 = time.perf_counter()
+    s = build_depth_session(scene, CAM, CFG, poses, MAP["K"], MAP["N_cap"], MAP["P"],
+                            MAP_KF_EVERY, device=device, snapshot_at=MAP_SNAP,
+                            on_frame=on_frame, **MAP_STEP)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+
+    # The local subset of the last frame, from its tracked matches.
+    m = s.state.m
+    n_valid = int(m.pt_valid.sum())
+    lk = local_keyframe_mask(m, s.state.last_obs, ref_kf=s.state.ref_kf)
+    seen_by = (m.kf_obs_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None] & lk[:, None]
+    local_ids = torch.unique(m.kf_obs_pt[seen_by].long())
+    local_pts = int(m.pt_valid[local_ids].sum())
+    log(f"map slice: {len(s.frames)} frames tracked in {wall:.1f} s (rendering and keyframe "
+        f"insertion included); {s.n_kf} keyframes, {n_valid} valid points of "
+        f"{MAP['P']}; K={MAP['K']}, N_cap={MAP['N_cap']}, {MAP_STEP}")
+    log(f"  last frame: {int(lk.sum())} local keyframes observe {local_pts} valid points; "
+        f"the subset gathers {min(local_pts, MAP_STEP['max_local_pts'])} of them")
+
+    p = np.stack([f["packed"] for f in s.frames])
+    t_err, r_err = pose_errors(np.stack([f["R"] for f in s.frames]),
+                               np.stack([f["t"] for f in s.frames]),
+                               np.stack([f["R_gt"] for f in s.frames]),
+                               np.stack([f["t_gt"] for f in s.frames]))
+    used_mm = p[:, steps.FUSED_USED_MM] > 0.5
+    n_tracked = p[:, steps.FUSED_N_TRACKED]
+    for k, f in enumerate(s.frames):
+        if k % 10 == 0 or k == len(s.frames) - 1:
+            log(f"  frame {f['frame']}: accept {p[k, 0]:.0f} mm {used_mm[k]:d} "
+                f"n_tracked {n_tracked[k]:.0f} nm {p[k, steps.FUSED_NM]:.0f} "
+                f"t err {t_err[k]:.4f} rot err {r_err[k]:.4f} deg launches {per_frame[k]}")
+    log(f"  all frames: accepted {int((p[:, 0] > 0.5).sum())}/{len(p)}, n_tracked min "
+        f"{n_tracked.min():.0f}, t err max {t_err.max():.4f}, rot err max {r_err.max():.4f} deg, "
+        f"motion model {int(used_mm.sum())} frames, reference keyframe {int((~used_mm).sum())}")
+    log(f"  map-slice launches: {launches}")
+    bad = [f["frame"] for k, f in enumerate(s.frames)
+           if not (p[k, 0] > 0.5 and n_tracked[k] >= 100
+                   and t_err[k] < MAP_T_TOL and r_err[k] < MAP_R_TOL)]
+    if bad:
+        raise AssertionError(f"map slice: frames {bad} missed acceptance or ground truth")
+    if not (used_mm.sum() > len(p) / 2 and (~used_mm).sum() >= 1):
+        raise AssertionError("map slice: the motion-model and reference branches were not both taken")
+    if any(d["fast_nms"] < CFG.n_levels or d["gather_patches"] < 1 for d in per_frame):
+        raise AssertionError(f"map slice: a frame did not launch both kernels: {per_frame}")
+    if not np.isfinite(p).all() or p.shape[1] != steps.FUSED_LEN:
+        raise AssertionError("map slice: packed result malformed")
+
+    with_vel = [i for i, (st, _) in sorted(s.snapshots.items()) if st.has_vel]
+    mid, late = with_vel[0], with_vel[-1]
+    if device == "cuda":
+        st, img = s.snapshots[mid]
+        out = _fused(st, img, s.inv_sigma2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu = _fused(_state_to_cpu(st), img.cpu(), s.inv_sigma2)
+        log(f"  CPU run of the frame-{mid} state: {time.perf_counter() - t0:.1f} s")
+        pg, pc = out[-1].cpu().numpy(), cpu[-1].numpy()
+        same_obs = float((out[3].cpu() == cpu[3]).float().mean())
+        dR = float((out[1].cpu() - cpu[1]).abs().max())
+        dt = float((out[2].cpu() - cpu[2]).abs().max())
+        log(f"  CUDA vs CPU: packed integer fields {pg[INT_FIELDS].tolist()} vs "
+            f"{pc[INT_FIELDS].tolist()}, obs equal {same_obs:.4f}, max |dR| {dR:.2e}, "
+            f"max |dt| {dt:.2e}")
+        if not (np.array_equal(pg[INT_FIELDS], pc[INT_FIELDS]) and same_obs >= 0.99
+                and dR < POSE_TOL and dt < POSE_TOL):
+            raise AssertionError("map slice: CUDA and CPU disagree")
+    return s, (mid, late), launches
+
+
+def count_syncs(fn):
+    """(fn(), one "file:line (function)" per synchronising CUDA call it
+    made), from torch.cuda.set_sync_debug_mode's warnings. The site is the
+    innermost frame of the port on the warning's stack, so a sync inside
+    torch's own Python code is charged to the port's line that called it;
+    a sync with no frame of the port gives the innermost three frames."""
+    pkg = str(Path(__file__).resolve().parent / "tpuslam_torch")
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack if f.filename.startswith(pkg)]
+        where = ours[-1:] or stack[::-1][:3]
+        sites.append(" < ".join(f"{Path(f.filename).name}:{f.lineno} ({f.name})" for f in where))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        sites.clear()  # setting the mode reports a sync of its own
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def map_times(s, snap: int, smi: str) -> dict:
+    """ms per frame of fused_track_frame_image on a fixed late-session state,
+    launches and device->host reads per frame, the device's busy share."""
+    st, img = s.snapshots[snap]
+    branches = (("motion model", True), ("reference keyframe", False))
+    res = dict(zip((name for name, _ in branches), cuda_ms_turns(
+        [lambda hv=hv: _fused(st, img, s.inv_sigma2, hv) for _, hv in branches])))
+    for name, hv in branches:
+        _, sites = count_syncs(lambda: _fused(st, img, s.inv_sigma2, hv)[-1].cpu())
+        if not sites:
+            raise AssertionError("count_syncs saw not even the packed fetch")
+        res[name + " syncs"] = sites[:-1]  # less the packed fetch, which the caller makes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _fused(st, img, s.inv_sigma2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+
+    def dev_time(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    dev_us = sum(dev_time(e) for e in ev)
+    top = sorted(ev, key=dev_time, reverse=True)[:8]
+    log(f"map slice times on {smi} (the frame-{snap} state, K={MAP['K']}, "
+        f"P={MAP['P']}, {int(st.m.pt_valid.sum())} valid points):")
+    for name in ("motion model", "reference keyframe"):
+        log(f"  fused_track_frame_image, {name} branch: {res[name]:.3f} ms/frame, "
+            f"{1000.0 / res[name]:.2f} frames/s (CUDA-event median of {REPS}, the branches in turns); "
+            f"{len(res[name + ' syncs'])} device->host reads in the step, at "
+            f"{res[name + ' syncs']}")
+    log(f"  one profiled call (motion model): {launches} kernel launches, device time "
+        f"{dev_us / 1e3:.3f} ms of {wall_ms:.3f} ms wall under the profiler "
+        f"({dev_us / 1e3 / res['motion model']:.1%} of the unprofiled "
+        f"{res['motion model']:.3f} ms); most device time:")
+    for e in top:
+        log(f"    {dev_time(e) / 1e3:8.3f} ms {e.count:6d} x {e.key[:90]}")
+    res.update(launches=launches, device_ms=dev_us / 1e3, wall_ms=wall_ms)
+    return res
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -196,6 +421,7 @@ def main() -> int:
 
     err, levels, atlas, corner = phase_kernels(imgs, rng)
     args, launches = phase_slice(inp)
+    session, (_, late), map_launches = phase_map(scene)
 
     # gather_patches' wrapper first checks the corners on the host (one
     # device sync); the kernel and the plain version are timed without it.
@@ -216,6 +442,7 @@ def main() -> int:
         f"kernel {ms['gather_patches']:.4f} ms, plain {plain_ms['gather_patches']:.4f} ms, "
         f"wrapper with its corner check {gather_wrapper_ms:.4f} ms")
     log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
+    map_times(session, late, smi)
 
     sources = {
         "fast_nms": ("tpuslam_torch/csrc/fast_nms.cu", "tpuslam/ops/fast_pallas.py:100"),
@@ -223,7 +450,7 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err[name],
+         "launches": launches[name] + map_launches[name], "max_abs_err": err[name],
          "ms": ms[name], "plain_ms": plain_ms[name]}
         for name, (src, rep) in sources.items()
     ]}))

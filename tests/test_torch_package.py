@@ -2,7 +2,8 @@
 tensors take the kernels' plain versions, state crosses both ways, and (on
 a card) each CUDA kernel equals its plain version.
 
-This module imports no jax, so its card test runs on a machine without it:
+This module imports no jax at its top (one test imports it inside), so its
+card test runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_package.py -m cuda
 """
 
@@ -19,6 +20,10 @@ from tpuslam_torch.convert import (
     desc_to_numpy,
     features_to_numpy,
     features_to_torch,
+    frame_features_to_numpy,
+    frame_features_to_torch,
+    map_to_numpy,
+    map_to_torch,
 )
 from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
@@ -36,6 +41,7 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam'))\n"
         "assert not bad, bad\n"
+        "assert {'tpuslam_torch.mapstate.core', 'tpuslam_torch.pipeline.steps'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -85,6 +91,43 @@ def test_features_cross_both_ways(rng):
     assert npf.desc.dtype == np.uint32
     back = features_to_torch(npf)
     for a, b in zip(f, back):
+        assert torch.equal(a, b)
+
+
+def test_map_crosses_both_ways_bit_for_bit():
+    """Every field of the JAX package's empty map, through the port and
+    back: the uint32 descriptor words, the inf distance bounds and the 0-d
+    int32 watermarks included."""
+    from tpuslam.mapstate.core import make_empty_map
+
+    ref = make_empty_map(4, 8, 16)
+    rng = np.random.default_rng(3)
+    ref = ref._replace(kf_kp_desc=rng.integers(0, 2**32, (4, 8, 8), dtype=np.uint32),
+                       pt_desc=rng.integers(0, 2**32, (16, 8), dtype=np.uint32))
+    t = map_to_torch(ref)
+    assert t.kf_kp_desc.dtype == torch.int32 and t.n_kf.shape == () and t.n_kf.dtype == torch.int32
+    back = map_to_numpy(t)
+    for name, a, b in zip(ref._fields, back, ref):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+
+
+def test_frame_features_cross_both_ways(rng):
+    from tpuslam_torch.mapstate.core import FrameFeatures
+
+    f = FrameFeatures(
+        xy=torch.from_numpy(rng.uniform(0, 100, (7, 2)).astype(np.float32)),
+        level=torch.arange(7, dtype=torch.int32),
+        angle=torch.zeros(7),
+        desc=array_to_tensor(rng.integers(0, 2**32, (7, 8), dtype=np.uint32)),
+        valid=torch.ones(7, dtype=torch.bool),
+        u_right=torch.full((7,), -1.0),
+        depth=torch.linspace(0, 3, 7),
+    )
+    npf = frame_features_to_numpy(f)
+    assert npf.desc.dtype == np.uint32
+    for a, b in zip(f, frame_features_to_torch(npf)):
         assert torch.equal(a, b)
 
 

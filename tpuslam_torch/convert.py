@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.geometry.camera import PinholeCamera
+from tpuslam_torch.mapstate.core import FrameFeatures, MapState
 from tpuslam_torch.ops.orb import ORBFeatures
 from tpuslam_torch.optim.pose import PoseObs
 
@@ -46,12 +47,37 @@ def features_to_torch(f, device="cpu") -> ORBFeatures:
 
 def features_to_numpy(f: ORBFeatures) -> ORBFeatures:
     """The port's ORBFeatures -> the same fields as numpy, uint32 desc."""
-    return ORBFeatures(
-        *(desc_to_numpy(x) if name == "desc" else x.detach().cpu().numpy()
-          for name, x in zip(ORBFeatures._fields, f))
-    )
+    return ORBFeatures(*(_to_numpy(n, x) for n, x in zip(ORBFeatures._fields, f)))
 
 
 def pose_obs_to_torch(obs, device="cpu") -> PoseObs:
     """The JAX package's PoseObs -> the port's."""
     return PoseObs(*(array_to_tensor(x, device) for x in obs))
+
+
+def _to_numpy(name: str, x: torch.Tensor) -> np.ndarray:
+    return desc_to_numpy(x) if name.endswith("desc") else x.detach().cpu().numpy()
+
+
+def frame_features_to_torch(f, device="cpu") -> FrameFeatures:
+    """The JAX package's FrameFeatures -> the port's."""
+    return FrameFeatures(*(array_to_tensor(x, device) for x in f))
+
+
+def frame_features_to_numpy(f: FrameFeatures) -> FrameFeatures:
+    """The port's FrameFeatures -> the same fields as numpy, uint32 desc."""
+    return FrameFeatures(*(_to_numpy(n, x) for n, x in zip(FrameFeatures._fields, f)))
+
+
+def map_to_torch(m, device="cpu") -> MapState:
+    """The JAX package's MapState (or one of numpy arrays) -> the port's:
+    every field, the uint32 descriptor words as int32 bit patterns, the
+    0-d watermarks as 0-d int32."""
+    return MapState(*(array_to_tensor(x, device) for x in m))
+
+
+def map_to_numpy(m: MapState) -> MapState:
+    """The port's MapState -> the same fields as numpy arrays, descriptors
+    as the JAX package's uint32 words. jnp.asarray of each field gives the
+    JAX package's MapState: `jax_core.MapState(*map(jnp.asarray, ...))`."""
+    return MapState(*(_to_numpy(n, x) for n, x in zip(MapState._fields, m)))

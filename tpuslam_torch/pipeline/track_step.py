@@ -24,36 +24,8 @@ from tpuslam_torch.geometry.se3 import se3_apply
 from tpuslam_torch.matching.search import TH_HIGH, search_by_projection_points
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
 from tpuslam_torch.optim.pose import PoseObs, pose_optimization
+from tpuslam_torch.pipeline._index import gather_rows, scatter_last, sf_pow
 from tpuslam_torch.pipeline.steps import predict_scale
-
-
-def _scatter_last(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """dst[b, idx[b, q]] = src[b, q] for q in order: where an index repeats,
-    the last write wins. That is what the JAX package's `.at[idx].set` does
-    on the CPU (its scatter runs the updates in order); writing it out keeps
-    the result deterministic on the card, where index_put_ with repeated
-    indices is not."""
-    B, Nq = idx.shape
-    q = torch.arange(Nq, device=idx.device).expand(B, Nq)
-    last = torch.full(dst.shape[:2], -1, dtype=torch.int64, device=idx.device)
-    last = last.scatter_reduce(1, idx, q, reduce="amax")
-    pick = last.clamp(min=0)
-    if src.dim() == 3:
-        val = torch.gather(src, 1, pick[..., None].expand(-1, -1, src.shape[2]))
-        return torch.where((last >= 0)[..., None], val, dst)
-    return torch.where(last >= 0, torch.gather(src, 1, pick), dst)
-
-
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, N, ...) at idx (B, M) -> (B, M, ...)."""
-    if x.dim() == 2:
-        return torch.gather(x, 1, idx)
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
-
-
-def _sf_pow(sf: float, lvl: torch.Tensor) -> torch.Tensor:
-    """float32(sf) ** level, as the JAX package's weakly typed power."""
-    return torch.full_like(lvl, sf, dtype=torch.float32).pow(lvl.to(torch.float32))
 
 
 def track_step_batched(cam: PinholeCamera, cfg: ORBConfig, imgs,
@@ -87,20 +59,20 @@ def track_step_batched(cam: PinholeCamera, cfg: ORBConfig, imgs,
     uv = project(cam, p_cam)
     valid = (p_cam[..., 2] > 0.05) & in_image(uv)
     idx1, _, ok1 = search_by_projection_points(
-        uv, last_desc, valid, 7.0 * _sf_pow(sf, last_level),
+        uv, last_desc, valid, 7.0 * sf_pow(sf, last_level),
         torch.clamp(last_level - 1, min=0), last_level + 1,
         feats.xy, feats.desc, feats.level, feats.angle, feats.valid,
         max_dist=TH_HIGH, nn_ratio=0.0,
     )
     uvr1 = torch.cat(
-        [_gather_rows(feats.xy, idx1), -torch.ones((B, N, 1), device=dev)], dim=-1
+        [gather_rows(feats.xy, idx1), -torch.ones((B, N, 1), device=dev)], dim=-1
     )
     obs1 = PoseObs(last_xyz, uvr1, torch.ones((B, N), device=dev), ok1)
     R1, t1, inl1, _ = pose_optimization(cam, R0, t0, obs1)
 
     # Keypoints claimed by stage 1 are excluded from the local-map search.
     o1 = ok1 & inl1
-    kp_taken = _scatter_last(torch.zeros((B, Nk), dtype=torch.bool, device=dev), idx1, o1)
+    kp_taken = scatter_last(torch.zeros((B, Nk), dtype=torch.bool, device=dev), idx1, o1)
 
     # ---- stage 2: local-map search with isInFrustum gates ------------------
     p_cam = se3_apply(R1[:, None], t1[:, None], map_xyz)
@@ -116,7 +88,7 @@ def track_step_batched(cam: PinholeCamera, cfg: ORBConfig, imgs,
     lvl = predict_scale(dist, map_max_d, sf, n_levels)
     radius = torch.where(
         view_cos > 0.998, torch.full_like(dist, 2.5), torch.full_like(dist, 4.0)
-    ) * _sf_pow(sf, lvl)
+    ) * sf_pow(sf, lvl)
     idx2, _, ok2 = search_by_projection_points(
         uv, map_desc, cand, radius, torch.clamp(lvl - 1, min=0), lvl + 1,
         feats.xy, feats.desc, feats.level, feats.angle, feats.valid & ~kp_taken,
@@ -128,11 +100,11 @@ def track_step_batched(cam: PinholeCamera, cfg: ORBConfig, imgs,
     # matches on still-free keypoints.
     X = torch.zeros((B, Nk, 3), device=dev)
     has = torch.zeros((B, Nk), dtype=torch.bool, device=dev)
-    X = _scatter_last(X, idx1, torch.where(o1[..., None], last_xyz, _gather_rows(X, idx1)))
-    has = _scatter_last(has, idx1, o1 | _gather_rows(has, idx1))
-    take2 = ok2 & _gather_rows(~has, idx2)
-    X = _scatter_last(X, idx2, torch.where(take2[..., None], map_xyz, _gather_rows(X, idx2)))
-    has = _scatter_last(has, idx2, take2 | _gather_rows(has, idx2))
+    X = scatter_last(X, idx1, torch.where(o1[..., None], last_xyz, gather_rows(X, idx1)))
+    has = scatter_last(has, idx1, o1 | gather_rows(has, idx1))
+    take2 = ok2 & gather_rows(~has, idx2)
+    X = scatter_last(X, idx2, torch.where(take2[..., None], map_xyz, gather_rows(X, idx2)))
+    has = scatter_last(has, idx2, take2 | gather_rows(has, idx2))
 
     uvr2 = torch.cat([feats.xy, -torch.ones((B, Nk, 1), device=dev)], dim=-1)
     inv_s2 = inv_sigma2[torch.clamp(feats.level, 0, n_levels - 1).long()]

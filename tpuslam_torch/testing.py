@@ -1,6 +1,7 @@
 """Synthetic scenes without jax: a numpy copy of tests/synthetic.py's
 make_texture, StepWallScene and orbit_trajectory (blur and rotations from
-this package), plus the inputs of a coherent tracking step.
+this package), the inputs of a coherent tracking step, and a tracking
+session over a real MapState (build_depth_session).
 
 A coherent step: the keypoints of a frame rendered at pose A, back-projected
 through A's depth image, are both the last frame's points and the first
@@ -12,13 +13,25 @@ optimization with no inliers to test.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import PinholeCamera
-from tpuslam_torch.geometry.se3 import so3_exp
+from tpuslam_torch.geometry.camera import PinholeCamera, unproject
+from tpuslam_torch.geometry.se3 import se3_apply, se3_inverse, so3_exp
+from tpuslam_torch.mapstate.core import (
+    FrameFeatures,
+    MapState,
+    compute_point_descriptors,
+    insert_keyframe,
+    insert_points,
+    make_empty_map,
+    update_point_normals,
+)
 from tpuslam_torch.ops.image import gaussian_blur
-from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
+from tpuslam_torch.ops.orb import ORBConfig, extract_orb, extract_orb_batched
+from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, fused_track_frame_image
 
 
 def make_texture(rng, h=600, w=800):
@@ -42,10 +55,14 @@ class StepWallScene:
         self.band = band
         self.tex_scale = tex_scale
         self.ssaa = ssaa
+        self._tex_cache = {}
 
-    def render(self, cam: PinholeCamera, R, t, with_depth: bool = False):
+    def render(self, cam: PinholeCamera, R, t, with_depth: bool = False, device=None):
         """Render from world->camera pose (R, t) with `ssaa`x supersampling;
-        with_depth=True also returns the point-sampled camera-frame depth."""
+        with_depth=True also returns the point-sampled camera-frame depth.
+        Numpy arrays, as tests/synthetic.py gives them (the image float64,
+        the depth float32); with a `device`, tensors there, computed there."""
+        dev = torch.device("cpu" if device is None else device)
         s = self.ssaa
         if s > 1:
             cam_hi = PinholeCamera(
@@ -53,64 +70,77 @@ class StepWallScene:
                 cx=cam.cx * s + (s - 1) / 2.0, cy=cam.cy * s + (s - 1) / 2.0,
                 width=cam.width * s, height=cam.height * s,
             )
-            out = self._render_once(cam_hi, R, t)
-            out = out.reshape(cam.height, s, cam.width, s).mean(axis=(1, 3))
-            if with_depth:
-                _, z = self._render_once(cam, R, t, with_depth=True)
-                return out, z
-            return out
-        return self._render_once(cam, R, t, with_depth)
+            out = self._render_once(cam_hi, R, t, dev)[0]
+            out = out.reshape(cam.height, s, cam.width, s).mean(dim=(1, 3))
+            z = self._render_once(cam, R, t, dev)[1] if with_depth else None
+        else:
+            out, z = self._render_once(cam, R, t, dev)
+        if device is None:
+            out = out.numpy()
+            z = None if z is None else z.numpy()
+        return (out, z) if with_depth else out
 
-    def _render_once(self, cam: PinholeCamera, R, t, with_depth: bool = False):
+    def _texture(self, i: int, dev: torch.device) -> torch.Tensor:
+        key = (i, str(dev))
+        if key not in self._tex_cache:
+            self._tex_cache[key] = torch.from_numpy(self.textures[i]).to(dev)
+        return self._tex_cache[key]
+
+    def _render_once(self, cam: PinholeCamera, R, t, dev: torch.device):
+        """(image (H, W) float64, depth (H, W) float32) by ray casting. The
+        arithmetic is tests/synthetic.py's numpy arithmetic, dtypes included:
+        the bilinear weights come out float64 there (float32 - int64)."""
         H, W = cam.height, cam.width
-        R = np.asarray(R)
-        t = np.asarray(t)
-        uu, vv = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+        f32 = torch.float32
+        R = torch.as_tensor(np.asarray(R, np.float32), device=dev)
+        t = torch.as_tensor(np.asarray(t, np.float32), device=dev)
+        vv, uu = torch.meshgrid(torch.arange(H, dtype=f32, device=dev),
+                                torch.arange(W, dtype=f32, device=dev), indexing="ij")
         C = -R.T @ t
-        d = R.T @ np.stack(
-            [(uu - cam.cx) / cam.fx, (vv - cam.cy) / cam.fy, np.ones_like(uu)], 0
+        d = R.T @ torch.stack(
+            [(uu - cam.cx) / cam.fx, (vv - cam.cy) / cam.fy, torch.ones_like(uu)], 0
         ).reshape(3, -1)
         nb = len(self.depths)
         x_lo = -0.5 * nb * self.band
-        out = np.zeros(H * W, np.float32)
-        zbuf = np.zeros(H * W, np.float32)
-        best_lam = np.full(H * W, np.inf, np.float32)
+        out = torch.zeros(H * W, dtype=torch.float64, device=dev)
+        zbuf = torch.zeros(H * W, dtype=f32, device=dev)
+        best_lam = torch.full((H * W,), float("inf"), dtype=f32, device=dev)
+        d2 = torch.where(torch.abs(d[2]) < 1e-9, torch.full_like(d[2], 1e-9), d[2])
         for i, z_plane in enumerate(self.depths):
-            lam = (z_plane - C[2]) / np.where(np.abs(d[2]) < 1e-9, 1e-9, d[2])
+            lam = (z_plane - C[2]) / d2
             P = C[:, None] + lam * d
-            band_idx = np.floor((P[0] - x_lo) / self.band)
-            in_band = np.clip(band_idx, 0, nb - 1) == i
+            band_idx = torch.floor((P[0] - x_lo) / self.band)
+            in_band = torch.clamp(band_idx, 0, nb - 1) == i
             hit = (lam > 0) & in_band & (lam < best_lam)
-            tex = self.textures[i]
+            tex = self._texture(i, dev)
             th, tw = tex.shape
-            tx = np.clip(P[0] * self.tex_scale + tw / 2, 0, tw - 2)
-            ty = np.clip(P[1] * self.tex_scale + th / 2, 0, th - 2)
-            x0 = tx.astype(int)
-            y0 = ty.astype(int)
-            wx = tx - x0
-            wy = ty - y0
+            tx = torch.clamp(P[0] * self.tex_scale + tw / 2, 0, tw - 2)
+            ty = torch.clamp(P[1] * self.tex_scale + th / 2, 0, th - 2)
+            x0 = tx.long()
+            y0 = ty.long()
+            wx = tx.double() - x0
+            wy = ty.double() - y0
             val = (
                 tex[y0, x0] * (1 - wx) * (1 - wy)
                 + tex[y0, x0 + 1] * wx * (1 - wy)
                 + tex[y0 + 1, x0] * (1 - wx) * wy
                 + tex[y0 + 1, x0 + 1] * wx * wy
             )
-            out = np.where(hit, val, out)
+            out = torch.where(hit, val, out)
             z_cam = (R[2] @ P) + t[2]
-            zbuf = np.where(hit, z_cam, zbuf)
-            best_lam = np.where(hit, lam, best_lam)
-        if with_depth:
-            return out.reshape(H, W), zbuf.reshape(H, W)
-        return out.reshape(H, W)
+            zbuf = torch.where(hit, z_cam, zbuf)
+            best_lam = torch.where(hit, lam, best_lam)
+        return out.reshape(H, W), zbuf.reshape(H, W)
 
 
-def orbit_trajectory(n_frames, step=0.04, yaw_rate=0.004):
-    """World->camera poses for a gentle lateral translation with slow yaw."""
+def orbit_trajectory(n_frames, step=0.04, yaw_rate=0.004, x0=0.0):
+    """World->camera poses for a gentle lateral translation with slow yaw,
+    the camera centre starting at world x = x0."""
     poses = []
     for i in range(n_frames):
         w = torch.tensor([0.0, yaw_rate * i, 0.0], dtype=torch.float32)
         R = so3_exp(w).numpy()
-        C = np.array([step * i, 0.01 * np.sin(i * 0.3), 0.002 * i], np.float32)
+        C = np.array([x0 + step * i, 0.01 * np.sin(i * 0.3), 0.002 * i], np.float32)
         poses.append((R, (-R @ C).astype(np.float32)))
     return poses
 
@@ -199,3 +229,181 @@ def pose_errors(R, t, R_gt, t_gt):
     dR = np.einsum("bij,bkj->bik", R, np.asarray(R_gt, np.float64))
     cos = np.clip((np.trace(dR, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
     return np.linalg.norm(t - t_gt, axis=-1), np.degrees(np.arccos(cos))
+
+
+def scale_tables(cfg: ORBConfig, device="cpu"):
+    """(scale_factors, inv_sigma2) per octave, float32, as the tracker
+    builds them."""
+    sf = cfg.scale_factor
+    n = cfg.n_levels
+    return (torch.tensor([sf**l for l in range(n)], dtype=torch.float32, device=device),
+            torch.tensor([1.0 / (sf**l) ** 2 for l in range(n)], dtype=torch.float32,
+                         device=device))
+
+
+def orb_frame_features(f, depth=None) -> FrameFeatures:
+    """A monocular frame's FrameFeatures from ORBFeatures (no stereo; depth
+    0 = unknown unless given), as fused_track_frame_image builds them."""
+    n = f.xy.shape[0]
+    dev = f.xy.device
+    return FrameFeatures(
+        xy=f.xy, level=f.level, angle=f.angle, desc=f.desc, valid=f.valid,
+        u_right=torch.full((n,), -1.0, device=dev),
+        depth=torch.zeros((n,), device=dev) if depth is None else depth,
+    )
+
+
+def pad_feats(feats: FrameFeatures, cap: int) -> FrameFeatures:
+    """Pad a frame's keypoint arrays to the keyframe capacity `cap`
+    (Tracker._pad_feats): invalid, mono, no depth."""
+    pad = cap - feats.xy.shape[0]
+    if pad == 0:
+        return feats
+
+    def p(a, fill=0):
+        return torch.cat([a, torch.full((pad, *a.shape[1:]), fill, dtype=a.dtype, device=a.device)])
+
+    return FrameFeatures(xy=p(feats.xy), level=p(feats.level), angle=p(feats.angle),
+                         desc=p(feats.desc), valid=p(feats.valid, False),
+                         u_right=p(feats.u_right, -1.0), depth=p(feats.depth))
+
+
+def depth_at(depth_img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """The rendered depth at each keypoint's nearest pixel (0 = none)."""
+    H, W = depth_img.shape
+    u = torch.clamp(torch.round(xy[:, 0]).long(), 0, W - 1)
+    v = torch.clamp(torch.round(xy[:, 1]).long(), 0, H - 1)
+    return depth_img[v, u]
+
+
+def add_depth_keyframe(m: MapState, cam: PinholeCamera, feats_p: FrameFeatures, obs_p,
+                       R, t, frame_id: int, ki: int, scale_factors):
+    """Insert keyframe slot `ki` (the next free one) at pose (R, t) with
+    observations obs_p, add a map point for every untracked keypoint with
+    depth (Tracker._add_depth_points, without its depth threshold), then
+    refresh the normals and the new points' descriptors. Returns
+    (map, the keyframe's observations)."""
+    m, _ = insert_keyframe(m, feats_p, R, t, frame_id, obs_p)
+    P = m.capacity_pt
+    d = feats_p.depth
+    free = (obs_p < 0) & feats_p.valid & (d > 0)
+    Xc = unproject(cam, feats_p.xy, d)
+    Xw = se3_apply(*se3_inverse(R, t), Xc)
+    dist = torch.linalg.norm(Xc, dim=-1)
+    max_d = dist * scale_factors[torch.clamp(feats_p.level, 0, scale_factors.shape[0] - 1).long()]
+    min_d = max_d / scale_factors[-1]
+    vecs = Xw - (-(R.T @ t))
+    normal = vecs / torch.clamp(torch.linalg.norm(vecs, dim=-1, keepdim=True), min=1e-9)
+    m, slots = insert_points(m, Xw, feats_p.desc, ki, free, normal, 0.8 * min_d, 1.2 * max_d)
+    created = free & (slots >= 0)
+    obs = torch.where(created, slots, obs_p)
+    kf_obs = m.kf_obs_pt.clone()
+    kf_obs[ki] = obs
+    m = update_point_normals(m._replace(kf_obs_pt=kf_obs), scale_factors)
+    new = torch.zeros(P + 1, dtype=torch.bool, device=obs.device).index_fill(
+        0, torch.where(created, slots, P).long(), True)[:P]
+    return compute_point_descriptors(m, new), obs
+
+
+class TrackState(NamedTuple):
+    """What the tracker carries from one frame to the next: the inputs of
+    fused_track_frame_image besides the image and the settings."""
+
+    m: MapState
+    last_feats: FrameFeatures
+    last_obs: torch.Tensor
+    last_R: torch.Tensor
+    last_t: torch.Tensor
+    vel_R: torch.Tensor
+    vel_t: torch.Tensor
+    has_vel: bool
+    ref_kf: int
+
+
+class DepthSession(NamedTuple):
+    state: TrackState          # after the last frame
+    frames: list               # one dict per tracked frame
+    snapshots: dict            # frame index -> (TrackState before it, image)
+    n_kf: int
+    scale_factors: torch.Tensor
+    inv_sigma2: torch.Tensor
+
+
+def build_depth_session(scene: StepWallScene, cam: PinholeCamera, cfg: ORBConfig, poses,
+                        K: int, N_cap: int, P: int, kf_every: int, device="cpu",
+                        min_inliers_motion: int = 10, accept_thr: float = 30.0,
+                        max_local_pts: int = 0, cand_cap: int = 0,
+                        snapshot_at=(), on_frame=None) -> DepthSession:
+    """A coherent map built by the port alone, frame by frame, along
+    `poses` (world->camera, from orbit_trajectory):
+
+    1. keyframe 0 at its ground-truth pose, its keypoints back-projected
+       through the rendered depth into map points;
+    2. every next frame tracked by fused_track_frame_image, carrying the
+       last features, observations, pose and velocity as Tracker._track_frame
+       does (on acceptance only);
+    3. every `kf_every` accepted frames, a keyframe at the frame's
+       ground-truth pose with the frame's observations, new points for its
+       untracked keypoints with depth, normals and descriptors refreshed.
+       The port has no bundle adjustment yet: the exact pose stands in for
+       what mapping would give, so any pose error is the tracking step's
+       own and does not drift over the session;
+    4. after each keyframe the velocity is dropped, so the next frame takes
+       the reference-keyframe branch.
+
+    Keyframes come at a fixed cadence, not from NeedNewKeyFrame, so the
+    session is deterministic. `snapshot_at` lists frames whose input state
+    and image are kept; `on_frame(i, record)` runs after each tracked frame.
+    """
+    scale_factors, inv_sigma2 = scale_tables(cfg, device)
+    m = make_empty_map(K, N_cap, P, device)
+
+    def pose(i):
+        return (torch.from_numpy(np.asarray(poses[i][0], np.float32)).to(device),
+                torch.from_numpy(np.asarray(poses[i][1], np.float32)).to(device))
+
+    def keyframe(m, feats, obs, depth_img, i, ki):
+        feats_p = pad_feats(feats._replace(depth=depth_at(depth_img, feats.xy)), N_cap)
+        obs_p = torch.cat([obs, torch.full((N_cap - obs.shape[0],), -1, dtype=obs.dtype,
+                                           device=obs.device)])
+        m, kf_obs = add_depth_keyframe(m, cam, feats_p, obs_p, *pose(i), i, ki, scale_factors)
+        return m, kf_obs[: obs.shape[0]]
+
+    def render(i):
+        img, z = scene.render(cam, *poses[i], with_depth=True, device=device)
+        return img.to(torch.float32), z
+
+    img, z = render(0)
+    feats = orb_frame_features(extract_orb(img, cfg))
+    N = feats.xy.shape[0]
+    m, obs = keyframe(m, feats, torch.full((N,), -1, dtype=torch.int32, device=device), z, 0, 0)
+    eye, zero = torch.eye(3, device=device), torch.zeros(3, device=device)
+    st = TrackState(m, feats, obs, *pose(0), eye, zero, False, 0)
+    n_kf, since_kf = 1, 0
+    frames, snapshots = [], {}
+    for i in range(1, len(poses)):
+        img_t, z = render(i)
+        if i in snapshot_at:
+            snapshots[i] = (st, img_t)
+        feats, R, t, obs, vel_R, vel_t, pt_visible, pt_found, packed = fused_track_frame_image(
+            cam, cfg, st.m, img_t, st.last_feats, st.last_obs, st.last_R, st.last_t,
+            st.vel_R, st.vel_t, st.has_vel, st.ref_kf, inv_sigma2, accept_thr,
+            min_inliers_motion=min_inliers_motion, max_local_pts=max_local_pts,
+            cand_cap=cand_cap,
+        )
+        p = packed.cpu().numpy()  # the per-frame device->host fetch
+        rec = dict(frame=i, packed=p, has_vel=st.has_vel, keyframe=False,
+                   R=R.cpu().numpy(), t=t.cpu().numpy(), R_gt=poses[i][0], t_gt=poses[i][1])
+        if p[FUSED_ACCEPT] > 0.5:
+            st = TrackState(st.m._replace(pt_visible=pt_visible, pt_found=pt_found),
+                            feats, obs, R, t, vel_R, vel_t, True, st.ref_kf)
+            since_kf += 1
+            if since_kf == kf_every and n_kf < K:
+                m, obs = keyframe(st.m, feats, obs, z, i, n_kf)
+                st = TrackState(m, feats, obs, *pose(i), eye, zero, False, n_kf)
+                n_kf, since_kf = n_kf + 1, 0
+                rec["keyframe"] = True
+        frames.append(rec)
+        if on_frame is not None:
+            on_frame(i, rec)
+    return DepthSession(st, frames, snapshots, n_kf, scale_factors, inv_sigma2)
