@@ -7,7 +7,11 @@ Phases, any failure exits non-zero:
      and power limit as nvidia-smi gives them;
   2. build: compiles csrc/*.cu with nvcc (tpuslam_torch/_build.py);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card
-     at the main path's shapes, required equal (torch.equal);
+     at the main path's shapes, required equal (torch.equal): fast_nms over
+     the 8 levels of B=4 in one launch and over a ragged two-level set;
+     gather_patches on the uint8 and float32 atlases at 4, 5, 4000 and 4001
+     windows; then a child process whose window leaves the atlas must die
+     of the kernel's device-side assert;
   4. slice: track_step_batched at 640x480, 1000 ORB features, B=4 streams,
      L=4096 local-map points on a coherent synthetic scene; every kernel must
      have launched, each stream must land on its ground-truth pose, and the
@@ -19,9 +23,12 @@ Phases, any failure exits non-zero:
      frame accepted within 1 cm / 0.2 deg of ground truth, both branches
      taken, both kernels launched on every frame, and one mid-session state
      through the port on the CPU agreeing with the card;
-  5. times: CUDA-event medians of 20 runs after warm-up, for the kernels,
-     track_step_batched and fused_track_frame_image (with its launches and
-     device->host reads per frame).
+  5. times: CUDA-event medians of 20 runs after warm-up, in turns, for the
+     kernels against their plain versions (and gather_patches against one
+     aten::index call) at B=4 and B=1, per call and as the device's time
+     alone, track_step_batched and fused_track_frame_image (with its
+     launches and device->host reads per frame: 1 on a motion-model frame,
+     the verdict, and 0 on a reference-keyframe frame, or the run fails).
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -44,15 +51,10 @@ import tpuslam_torch._build as build
 from tpuslam_torch.convert import array_to_tensor, map_to_numpy, map_to_torch
 from tpuslam_torch.geometry.camera import PinholeCamera
 from tpuslam_torch.mapstate.core import FrameFeatures
-from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain
+from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain, fast_nms_pyramid, fast_response
 from tpuslam_torch.ops.image import build_pyramid
 from tpuslam_torch.ops.orb import ORBConfig, detect_batched, extract_orb_batched
-from tpuslam_torch.ops.patches import (
-    PSIZE,
-    _gather_patches_cuda,
-    gather_patches,
-    gather_patches_plain,
-)
+from tpuslam_torch.ops.patches import PSIZE, _gather_patches_cuda, gather_patches, gather_patches_plain
 from tpuslam_torch.pipeline import steps
 from tpuslam_torch.pipeline.steps import fused_track_frame_image, local_keyframe_mask
 from tpuslam_torch.pipeline.track_step import track_step_batched
@@ -70,6 +72,10 @@ CAM = PinholeCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=48
 CFG = ORBConfig(n_features=N_FEATURES)
 REPS = 20
 POSE_TOL = 1e-3  # CUDA vs CPU pose: float32 sums in another order
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 ops/s
+# outside the tensor cores. A kernel's bound is the larger of its bytes and
+# its operations over these.
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 
 # Map slice: the tracker's default capacities (tpuslam/pipeline/tracker.py
 # TrackerConfig, kp_capacity = 2 x n_features, _local_subset_cap, _cand_cap).
@@ -91,10 +97,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms_turns(fns, reps: int = REPS, warmup: int = 3) -> list[float]:
-    """Median device time in ms of each fn(), CUDA events around each call.
-    The fns take turns (a b, b a, a b, ...), so a drift in the speed of the
-    shared host falls on each of them alike."""
+def cuda_ms_turns(fns, reps: int = REPS, warmup: int = 3, ahead: bool = False) -> list[float]:
+    """Median time in ms of each fn(), CUDA events around each call. The fns
+    take turns (a b, b a, a b, ...), so a drift in the speed of the shared
+    host falls on each of them alike. Without `ahead` the time includes the
+    device's waits for the host between launches; with it, a ~10 ms sleep
+    kernel runs first, so the host has queued the whole call before the
+    device reaches it, and the time is the device's alone."""
     for _ in range(warmup):
         for fn in fns:
             fn()
@@ -104,6 +113,8 @@ def cuda_ms_turns(fns, reps: int = REPS, warmup: int = 3) -> list[float]:
         for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if ahead:
+                torch.cuda._sleep(20_000_000)
             start.record()
             fns[i]()
             end.record()
@@ -114,6 +125,26 @@ def cuda_ms_turns(fns, reps: int = REPS, warmup: int = 3) -> list[float]:
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return cuda_ms_turns([fn], reps, warmup)[0]
+
+
+def fast_bound_ms(levels, th: float) -> tuple:
+    """(ms, "bytes" or "operations"): each pixel read and written once as
+    float32, against 48 operations per pixel (16 differences, 32
+    comparisons) plus ~180 for each pixel that scores (the arc search and
+    its NMS window), counted on these inputs."""
+    px = sum(x.numel() for x in levels)
+    scoring = sum(int((fast_response(x, th) > 0).sum()) for x in levels)
+    t_bytes = 8 * px / HBM_BYTES_S * 1e3
+    t_ops = (48 * px + 180 * scoring) / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_bound_ms(atlas, corner) -> tuple:
+    """(ms, "bytes"): the atlas and corners read once, the float32 patches
+    written once; one conversion per output value is far below the rate."""
+    n = corner.shape[0]
+    nbytes = atlas.numel() * atlas.element_size() + corner.numel() * 4 + n * PSIZE * PSIZE * 4
+    return nbytes / HBM_BYTES_S * 1e3, "bytes"
 
 
 def phase_device() -> str:
@@ -139,32 +170,39 @@ def phase_build() -> None:
 
 
 def phase_kernels(imgs: torch.Tensor, rng):
-    """Kernel vs plain on the card. Returns ({name: max_abs_err}, the pyramid
-    levels, the atlas and the corners of the batch)."""
+    """Kernel vs plain on the card. Returns {name: max_abs_err}."""
     err = {"fast_nms": 0.0, "gather_patches": 0.0}
     levels = build_pyramid(imgs, CFG.n_levels, CFG.scale_factor)
     ragged = [torch.from_numpy(rng.uniform(0, 255, s).astype(np.float32)).cuda()
               for s in ((2, 97, 200), (1, 33, 31))]
-    for x in levels + ragged:
-        got = fast_nms(x, CFG.min_th_fast)
+    for group in (levels, ragged):
+        before = fast_nms.launches
+        got = fast_nms_pyramid(group, CFG.min_th_fast)
         torch.cuda.synchronize()
-        ref = fast_nms_plain(x, CFG.min_th_fast)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"fast_nms differs from its plain version at {tuple(x.shape)}")
-        err["fast_nms"] = max(err["fast_nms"], float((got - ref).abs().max()))
-        log(f"fast_nms {tuple(x.shape)}: equal ({int((got > 0).sum())} corners)")
+        if fast_nms.launches != before + 1:
+            raise AssertionError("fast_nms_pyramid did not launch once")
+        for x, g in zip(group, got):
+            ref = fast_nms_plain(x, CFG.min_th_fast)
+            torch.cuda.synchronize()
+            if not torch.equal(g, ref):
+                raise AssertionError(f"fast_nms differs from its plain version at {tuple(x.shape)}")
+            err["fast_nms"] = max(err["fast_nms"], float((g - ref).abs().max()))
+            log(f"fast_nms {tuple(x.shape)}: equal ({int((g > 0).sum())} corners)")
+        log(f"  ({len(group)} levels in one launch)")
 
     *_, atlas, corner = detect_batched(imgs, CFG)
     Ha, Wa = atlas.shape
     edges = torch.tensor([[0, 0], [Ha - PSIZE, Wa - PSIZE], [0, Wa - PSIZE], [Ha - PSIZE, 0]],
                          dtype=torch.int32, device=atlas.device)
-    for a, c in ((atlas, corner), (atlas, edges), (atlas.float(), corner)):
+    five = torch.cat([edges, corner[:1]])
+    more = torch.cat([corner, edges[1:2]])  # 4001: the last block of 4 is ragged
+    for a, c in ((atlas, corner), (atlas, edges), (atlas, five), (atlas, more),
+                 (atlas.float(), corner), (atlas.float(), more)):
         got = gather_patches(a, c)
         torch.cuda.synchronize()
         ref = gather_patches_plain(a, c)
         if not torch.equal(got, ref):
-            raise AssertionError(f"gather_patches differs from its plain version ({a.dtype})")
+            raise AssertionError(f"gather_patches differs from its plain version ({a.dtype}, {tuple(c.shape)})")
         err["gather_patches"] = max(err["gather_patches"], float((got - ref).abs().max()))
         log(f"gather_patches {a.dtype} atlas {tuple(a.shape)} corners {tuple(c.shape)}: equal")
 
@@ -180,7 +218,28 @@ def phase_kernels(imgs: torch.Tensor, rng):
         f"descriptors equal {same:.4f}, max angle diff {dang:.2e}")
     if same < 0.99 or dang > 1e-4:
         raise AssertionError("extract_orb_batched descriptors/angles: CUDA vs CPU")
-    return err, levels, atlas, corner
+    return err
+
+
+def phase_device_assert() -> None:
+    """A window past the atlas, in a child process (it keeps the dead CUDA
+    context): it must exit non-zero with the kernel's device-side assert."""
+    code = (
+        "import torch\n"
+        "from tpuslam_torch.ops.patches import gather_patches\n"
+        "atlas = torch.zeros((2338, 656), dtype=torch.uint8, device='cuda')\n"
+        "corner = torch.tensor([[0, 0], [2338 - 46, 3]], dtype=torch.int32, device='cuda')\n"
+        "gather_patches(atlas, corner)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no assert')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=300)
+    said = [line for line in out.stderr.splitlines() if "ssert" in line]
+    log(f"gather_patches, a window past the atlas in a child: exit {out.returncode}; "
+        f"{said[:2]}")
+    if out.returncode == 0 or "device-side assert" not in out.stderr:
+        raise AssertionError(f"no device-side assert for a window outside the atlas:\n{out.stderr[-2000:]}")
 
 
 def phase_slice(inp: dict):
@@ -192,7 +251,7 @@ def phase_slice(inp: dict):
     torch.cuda.synchronize()
     launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
     log(f"main path launches: {launches}")
-    if launches["fast_nms"] < CFG.n_levels or launches["gather_patches"] < 1:
+    if launches["fast_nms"] < 1 or launches["gather_patches"] < 1:
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
 
     R2c, t2c, n_inl2c, n_validc = (x.cpu() for x in (R2, t2, n_inl2, n_valid))
@@ -234,7 +293,7 @@ def _fused(st, img, inv_sigma2, has_vel=None):
 def _state_to_cpu(st):
     """A session state through numpy onto the CPU (map_to_numpy/map_to_torch)."""
     return st._replace(
-        m=map_to_torch(map_to_numpy(st.m)),
+        m=map_to_torch(map_to_numpy(st.m), "cpu"),
         last_feats=FrameFeatures(*(x.cpu() for x in st.last_feats)),
         last_obs=st.last_obs.cpu(), last_R=st.last_R.cpu(), last_t=st.last_t.cpu(),
         vel_R=st.vel_R.cpu(), vel_t=st.vel_t.cpu(),
@@ -245,7 +304,8 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
     """The map slice: a session at the tracker's default capacities, every
     frame checked, then one mid-session state on the CPU against the card.
     Returns (session, the frames of the first and the last snapshot with
-    a velocity, launches)."""
+    a velocity, launches, launches of each tracked frame; the first also
+    holds keyframe 0's)."""
     poses = orbit_trajectory(MAP_FRAMES, **MAP_POSES)
     per_frame = []
     seen = {"fast_nms": 0, "gather_patches": 0}
@@ -302,7 +362,7 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
         raise AssertionError(f"map slice: frames {bad} missed acceptance or ground truth")
     if not (used_mm.sum() > len(p) / 2 and (~used_mm).sum() >= 1):
         raise AssertionError("map slice: the motion-model and reference branches were not both taken")
-    if any(d["fast_nms"] < CFG.n_levels or d["gather_patches"] < 1 for d in per_frame):
+    if any(d["fast_nms"] < 1 or d["gather_patches"] < 1 for d in per_frame):
         raise AssertionError(f"map slice: a frame did not launch both kernels: {per_frame}")
     if not np.isfinite(p).all() or p.shape[1] != steps.FUSED_LEN:
         raise AssertionError("map slice: packed result malformed")
@@ -326,7 +386,7 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
         if not (np.array_equal(pg[INT_FIELDS], pc[INT_FIELDS]) and same_obs >= 0.99
                 and dR < POSE_TOL and dt < POSE_TOL):
             raise AssertionError("map slice: CUDA and CPU disagree")
-    return s, (mid, late), launches
+    return s, (mid, late), launches, per_frame
 
 
 def count_syncs(fn):
@@ -401,6 +461,52 @@ def map_times(s, snap: int, smi: str) -> dict:
     for e in top:
         log(f"    {dev_time(e) / 1e3:8.3f} ms {e.count:6d} x {e.key[:90]}")
     res.update(launches=launches, device_ms=dev_us / 1e3, wall_ms=wall_ms)
+    want = {"motion model": 1, "reference keyframe": 0}  # the verdict; none
+    if any(len(res[k + " syncs"]) != n for k, n in want.items()):
+        raise AssertionError(f"device->host reads in the step: "
+                             f"{ {k: res[k + ' syncs'] for k in want} }, want {want}")
+    return res
+
+
+def kernel_times(imgs, smi: str) -> dict:
+    """Each kernel against its plain version (and gather_patches against
+    one aten::index call, and its wrapper) in turns, at B=4 and B=1: the
+    time per call with the host's launch gaps, as the kernels line reports
+    it in `ms`, then the device's time alone (`ahead`, `device_ms`), of
+    which the bound is a share."""
+    res = {}
+    th = CFG.min_th_fast
+    for b in (B, 1):
+        levels = build_pyramid(imgs[:b], CFG.n_levels, CFG.scale_factor)
+        *_, atlas, corner = detect_batched(imgs[:b], CFG)
+        a32 = atlas.float()
+        ar = torch.arange(PSIZE, device=atlas.device)
+        rows = (corner[:, 0].long()[:, None] + ar)[:, :, None]
+        cols = (corner[:, 1].long()[:, None] + ar)[:, None, :]
+        fns = {
+            "fast_nms": lambda: fast_nms_pyramid(levels, th),
+            "fast_nms plain": lambda: [fast_nms_plain(x, th) for x in levels],
+            "gather_patches": lambda: _gather_patches_cuda(atlas, corner),
+            "gather_patches wrapper": lambda: gather_patches(atlas, corner),
+            "gather_patches plain": lambda: gather_patches_plain(atlas, corner),
+            "gather_patches library": lambda: a32[rows, cols],
+        }
+        per_call = dict(zip(fns, cuda_ms_turns(list(fns.values()))))
+        dev = dict(zip(fns, cuda_ms_turns(list(fns.values()), ahead=True)))
+        bounds = {"fast_nms": fast_bound_ms(levels, th), "gather_patches": gather_bound_ms(atlas, corner)}
+        log(f"kernel times at B={b} on {smi} (CUDA-event medians of {REPS}, in turns; "
+            f"per call with the host's gaps, then the device's time alone):")
+        for name, (bound, by) in bounds.items():
+            log(f"  {name}: kernel {per_call[name]:.4f} / {dev[name]:.4f} ms, plain "
+                f"{per_call[name + ' plain']:.4f} / {dev[name + ' plain']:.4f} ms, bound {bound:.4f} ms "
+                f"({by}), {bound / dev[name]:.1%} of the bound (device time)")
+        log(f"  gather_patches wrapper (no device->host read): {per_call['gather_patches wrapper']:.4f} / "
+            f"{dev['gather_patches wrapper']:.4f} ms")
+        log(f"  gather_patches library yardstick a32[rows, cols] (one aten::index on a float32 "
+            f"atlas, prebuilt index grids): {per_call['gather_patches library']:.4f} / "
+            f"{dev['gather_patches library']:.4f} ms; fast_nms has no single PyTorch call "
+            f"that computes its function")
+        res[b] = dict(dev=dev, per_call=per_call, bounds=bounds)
     return res
 
 
@@ -419,28 +525,14 @@ def main() -> int:
     log(f"scene and inputs: {time.perf_counter() - t0:.1f} s")
     imgs = torch.from_numpy(inp["imgs"]).cuda()
 
-    err, levels, atlas, corner = phase_kernels(imgs, rng)
+    err = phase_kernels(imgs, rng)
+    phase_device_assert()
     args, launches = phase_slice(inp)
-    session, (_, late), map_launches = phase_map(scene)
+    session, (_, late), map_launches, per_frame = phase_map(scene)
 
-    # gather_patches' wrapper first checks the corners on the host (one
-    # device sync); the kernel and the plain version are timed without it.
-    ms = {
-        "fast_nms": cuda_ms(lambda: [fast_nms(x, CFG.min_th_fast) for x in levels]),
-        "gather_patches": cuda_ms(lambda: _gather_patches_cuda(atlas, corner)),
-    }
-    gather_wrapper_ms = cuda_ms(lambda: gather_patches(atlas, corner))
-    plain_ms = {
-        "fast_nms": cuda_ms(lambda: [fast_nms_plain(x, CFG.min_th_fast) for x in levels]),
-        "gather_patches": cuda_ms(lambda: gather_patches_plain(atlas, corner)),
-    }
+    kt = kernel_times(imgs, smi)
     step_ms = cuda_ms(lambda: track_step_batched(CAM, CFG, *args))
     log(f"times on {smi}:")
-    log(f"  fast_nms, all 8 levels of B={B} 640x480: kernel {ms['fast_nms']:.4f} ms, "
-        f"plain {plain_ms['fast_nms']:.4f} ms")
-    log(f"  gather_patches, {tuple(corner.shape)[0]} patches of a {tuple(atlas.shape)} uint8 atlas: "
-        f"kernel {ms['gather_patches']:.4f} ms, plain {plain_ms['gather_patches']:.4f} ms, "
-        f"wrapper with its corner check {gather_wrapper_ms:.4f} ms")
     log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
     map_times(session, late, smi)
 
@@ -448,10 +540,16 @@ def main() -> int:
         "fast_nms": ("tpuslam_torch/csrc/fast_nms.cu", "tpuslam/ops/fast_pallas.py:100"),
         "gather_patches": ("tpuslam_torch/csrc/gather_patches.cu", "tpuslam/ops/patches.py:164"),
     }
+    main_b = kt[B]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + map_launches[name], "max_abs_err": err[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "launches": launches[name] + map_launches[name],
+         "launches_per_frame": statistics.median(d[name] for d in per_frame),
+         "max_abs_err": err[name],
+         "ms": main_b["per_call"][name], "plain_ms": main_b["per_call"][name + " plain"],
+         "device_ms": main_b["dev"][name],
+         "bound_ms": main_b["bounds"][name][0], "bound_by": main_b["bounds"][name][1],
+         "library_ms": main_b["per_call"].get(name + " library")}
         for name, (src, rep) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ from tpuslam.ops.image import gaussian_blur as jax_gaussian_blur
 from tpuslam.ops.patches import gather_patches_xla
 from tpuslam_torch.convert import desc_to_numpy
 from tpuslam_torch.ops import orb as torb
-from tpuslam_torch.ops.fast import fast_nms
+from tpuslam_torch.ops.fast import fast_nms, fast_nms_pyramid
 from tpuslam_torch.ops.image import build_pyramid, gaussian_blur
 from tpuslam_torch.ops.patches import PSIZE, gather_patches
 
@@ -63,6 +63,23 @@ def test_fast_nms_plain_exact(rng, shape):
     got = fast_nms(torch.from_numpy(img)[None], 7.0)[0].numpy()
     np.testing.assert_array_equal(got, ref)
     assert (ref > 0).sum() > 50
+
+
+def test_fast_nms_pyramid_exact(rng):
+    """fast_nms_pyramid on CPU tensors == the JAX package's
+    _nms3(fast_response) on every level of a two-stream pyramid, and on a
+    ragged set of levels with other stream counts."""
+    imgs = np.stack([_texture(rng, 120, 160), _texture(rng, 120, 160)])
+    levels = build_pyramid(torch.from_numpy(imgs), 8, 1.2)
+    levels += [torch.from_numpy(_texture(rng, 97, 200)[None]),
+               torch.from_numpy(np.stack([_texture(rng, 40, 45)] * 3))]
+    got = fast_nms_pyramid(levels, 7.0)
+    assert len(got) == len(levels) == 10
+    for lvl, g in zip(levels, got):
+        for b in range(lvl.shape[0]):
+            ref = np.asarray(jorb._nms3(jorb.fast_response(jnp.asarray(lvl[b].numpy()), 7.0)))
+            np.testing.assert_array_equal(g[b].numpy(), ref)
+    assert (got[0] > 0).sum() > 50
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

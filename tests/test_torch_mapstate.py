@@ -80,7 +80,7 @@ def _frame(rng, n=N):
 
 
 def test_make_empty_map_exact():
-    _assert_maps_equal(tcore.make_empty_map(K, N, P), jcore.make_empty_map(K, N, P))
+    _assert_maps_equal(tcore.make_empty_map(K, N, P, "cpu"), jcore.make_empty_map(K, N, P))
 
 
 @pytest.mark.parametrize("case", ["watermark", "full", "recycled_slot"])
@@ -94,8 +94,8 @@ def test_insert_keyframe_exact(rng, case):
     jm, jki = jcore.insert_keyframe(_jax(m), jcore.FrameFeatures(*map(jnp.asarray, feats)),
                                     jnp.asarray(R), jnp.asarray(t), 17, jnp.asarray(obs), slot=slot)
     tm, tki = tcore.insert_keyframe(
-        map_to_torch(m), tcore.FrameFeatures(*(array_to_tensor(x) for x in feats)),
-        torch.from_numpy(R), torch.from_numpy(t), 17, array_to_tensor(obs), slot=slot)
+        map_to_torch(m, "cpu"), tcore.FrameFeatures(*(array_to_tensor(x, "cpu") for x in feats)),
+        torch.from_numpy(R), torch.from_numpy(t), 17, array_to_tensor(obs, "cpu"), slot=slot)
     _assert_maps_equal(tm, jm)
     assert int(tki) == int(jki)
     if case == "full":
@@ -119,8 +119,8 @@ def test_insert_points_exact(rng, n_pt):
     )
     args["new_valid"][[0, 3, 4, 5, 6, -1]] = [True, True, True, True, False, False]
     jm, jslots = jcore.insert_points(_jax(m), ref_kf=3, **{k: jnp.asarray(v) for k, v in args.items()})
-    tm, tslots = tcore.insert_points(map_to_torch(m), ref_kf=3,
-                                     **{k: array_to_tensor(v) for k, v in args.items()})
+    tm, tslots = tcore.insert_points(map_to_torch(m, "cpu"), ref_kf=3,
+                                     **{k: array_to_tensor(v, "cpu") for k, v in args.items()})
     _assert_maps_equal(tm, jm)
     np.testing.assert_array_equal(tslots.numpy(), np.asarray(jslots))
     if n_pt == P - 5:
@@ -132,14 +132,14 @@ def test_insert_points_exact(rng, n_pt):
 def test_compact_point_slots_exact(rng):
     m = _random_map(rng)
     jm, jo2n = jcore.compact_point_slots(_jax(m))
-    tm, to2n = tcore.compact_point_slots(map_to_torch(m))
+    tm, to2n = tcore.compact_point_slots(map_to_torch(m, "cpu"))
     _assert_maps_equal(tm, jm)
     np.testing.assert_array_equal(to2n.numpy(), np.asarray(jo2n))
 
 
 def test_observation_incidence_exact(rng):
     m = _random_map(rng)
-    got = tcore.observation_incidence(map_to_torch(m))
+    got = tcore.observation_incidence(map_to_torch(m, "cpu"))
     np.testing.assert_array_equal(got.numpy(), np.asarray(jcore.observation_incidence(_jax(m))))
 
 
@@ -148,14 +148,14 @@ def test_covisibility_weights_exact(rng, block):
     """The single product (P <= block) and the blocked form (block=7)."""
     m = _random_map(rng)
     ref = np.asarray(jcore.covisibility_weights(_jax(m), block=block))
-    got = tcore.covisibility_weights(map_to_torch(m), block=block).numpy()
+    got = tcore.covisibility_weights(map_to_torch(m, "cpu"), block=block).numpy()
     np.testing.assert_array_equal(got, ref)
     assert ref.max() > 0
 
 
 def test_shared_point_counts_exact(rng):
     m = _random_map(rng)
-    tm = map_to_torch(m)
+    tm = map_to_torch(m, "cpu")
     for anchor in range(K):
         ref = np.asarray(jcore.shared_point_counts(_jax(m), anchor))
         np.testing.assert_array_equal(tcore.shared_point_counts(tm, anchor).numpy(), ref)
@@ -175,7 +175,7 @@ def test_compute_point_descriptors_exact(rng):
     mask = rng.uniform(size=P) < 0.8
     mask[5] = True
     ref = jcore.compute_point_descriptors(_jax(m), jnp.asarray(mask))
-    got = tcore.compute_point_descriptors(map_to_torch(m), array_to_tensor(mask))
+    got = tcore.compute_point_descriptors(map_to_torch(m, "cpu"), array_to_tensor(mask, "cpu"))
     _assert_maps_equal(got, ref)
     # The case list holds an even observation count and one above max_obs.
     live = (obs >= 0) & np.asarray(m.kf_kp_valid) & np.asarray(m.kf_valid)[:, None]
@@ -199,7 +199,7 @@ def test_update_point_normals_close(rng):
     m = _random_map(rng)
     sf = np.array([1.2**l for l in range(8)], np.float32)
     ref = jcore.update_point_normals(_jax(m), jnp.asarray(sf))
-    got = map_to_numpy(tcore.update_point_normals(map_to_torch(m), torch.from_numpy(sf)))
+    got = map_to_numpy(tcore.update_point_normals(map_to_torch(m, "cpu"), torch.from_numpy(sf)))
     for name in ("pt_normal", "pt_min_dist", "pt_max_dist"):
         np.testing.assert_allclose(getattr(got, name), np.asarray(getattr(ref, name)),
                                    rtol=1e-5, atol=1e-5, err_msg=name)

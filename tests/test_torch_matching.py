@@ -37,7 +37,7 @@ def test_hamming_matrix_exact(rng):
     b[:8] = _flip_bits(rng, a[:8], 5)
     b[8] = a[9]
     b[9] = ~a[10]  # all 256 bits differ, incl. the int32 sign bits
-    got = hamming_matrix(array_to_tensor(a), array_to_tensor(b))
+    got = hamming_matrix(array_to_tensor(a, "cpu"), array_to_tensor(b, "cpu"))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jax_hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
@@ -48,7 +48,7 @@ def test_hamming_matrix_exact(rng):
 def test_hamming_distance_exact(rng):
     a, b = _desc(rng, 33), _desc(rng, 33)
     ref = np.unpackbits((a ^ b).view(np.uint8), axis=-1).sum(-1)
-    got = hamming_distance(array_to_tensor(a), array_to_tensor(b)).numpy()
+    got = hamming_distance(array_to_tensor(a, "cpu"), array_to_tensor(b, "cpu")).numpy()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, np.asarray(jax_hamming_distance(jnp.asarray(a), jnp.asarray(b))))
 
@@ -84,7 +84,7 @@ def test_search_by_projection_points_exact(rng, nn_ratio):
     case = _search_case(rng)
     ref = jax_search(**{k: jnp.asarray(v) for k, v in case.items()}, max_dist=100, nn_ratio=nn_ratio)
     got = search_by_projection_points(
-        **{k: array_to_tensor(v) for k, v in case.items()}, max_dist=100, nn_ratio=nn_ratio
+        **{k: array_to_tensor(v, "cpu") for k, v in case.items()}, max_dist=100, nn_ratio=nn_ratio
     )
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -100,7 +100,7 @@ def test_search_batched_equals_per_stream(rng, nn_ratio):
         *[jnp.asarray(v) for v in stacked.values()]
     )
     got = search_by_projection_points(
-        *[array_to_tensor(v) for v in stacked.values()], max_dist=100, nn_ratio=nn_ratio
+        *[array_to_tensor(v, "cpu") for v in stacked.values()], max_dist=100, nn_ratio=nn_ratio
     )
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -112,7 +112,7 @@ def test_resolve_duplicates_exact(rng):
     valid = rng.uniform(size=64) < 0.8
     ref = jax_resolve_duplicates(jnp.asarray(idx), jnp.asarray(dist), jnp.asarray(valid), 12)
     got = resolve_duplicates(
-        array_to_tensor(idx).long(), array_to_tensor(dist), array_to_tensor(valid), 12
+        array_to_tensor(idx, "cpu").long(), array_to_tensor(dist, "cpu"), array_to_tensor(valid, "cpu"), 12
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
@@ -120,7 +120,7 @@ def test_resolve_duplicates_exact(rng):
 def _both(fn_name, *args, **kw):
     """The JAX and the port's function on the same numpy inputs, as numpy."""
     ref = getattr(jsearch, fn_name)(*(jnp.asarray(a) for a in args), **kw)
-    got = getattr(tsearch, fn_name)(*(array_to_tensor(a) for a in args), **kw)
+    got = getattr(tsearch, fn_name)(*(array_to_tensor(a, "cpu") for a in args), **kw)
     if not isinstance(ref, tuple):
         ref, got = (ref,), (got,)
     return [np.asarray(r) for r in ref], [g.numpy() for g in got]
@@ -157,7 +157,7 @@ def test_rotation_consistency_mask_batched(rng):
     a_q = rng.uniform(-np.pi, np.pi, (3, 50)).astype(np.float32)
     a_t = rng.uniform(-np.pi, np.pi, (3, 50)).astype(np.float32)
     valid = rng.uniform(size=(3, 50)) < 0.8
-    got = tsearch.rotation_consistency_mask(*(array_to_tensor(a) for a in (a_q, a_t, valid)))
+    got = tsearch.rotation_consistency_mask(*(array_to_tensor(a, "cpu") for a in (a_q, a_t, valid)))
     for b in range(3):
         ref = jsearch.rotation_consistency_mask(jnp.asarray(a_q[b]), jnp.asarray(a_t[b]),
                                                 jnp.asarray(valid[b]))

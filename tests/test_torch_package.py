@@ -7,6 +7,8 @@ card test runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_package.py -m cuda
 """
 
+import ctypes
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -25,7 +27,10 @@ from tpuslam_torch.convert import (
     map_to_numpy,
     map_to_torch,
 )
-from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain
+from tpuslam_torch import _build, convert
+from tpuslam_torch.mapstate import core as mapcore
+from tpuslam_torch.ops import orb as torb
+from tpuslam_torch.ops.fast import TILE_H, TILE_W, fast_nms, fast_nms_plain, fast_nms_pyramid, level_table
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
 from tpuslam_torch.ops.patches import PSIZE, gather_patches, gather_patches_plain
 
@@ -62,6 +67,93 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     assert fast_nms.launches == 0 and gather_patches.launches == 0
 
 
+@pytest.mark.parametrize("fn", [
+    convert.array_to_tensor, convert.features_to_torch, convert.pose_obs_to_torch,
+    convert.frame_features_to_torch, convert.map_to_torch, mapcore.make_empty_map,
+])
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+LEVEL_SETS = [
+    [(4, 480, 640), (4, 400, 533), (4, 333, 444), (4, 278, 370),
+     (4, 231, 309), (4, 193, 257), (4, 161, 214), (4, 134, 179)],
+    [(2, 97, 200), (1, 33, 31)],
+    [(1, 30, 30), (3, 31, 29), (0, 50, 50), (2, 1, 1)],
+]
+
+
+@pytest.mark.parametrize("shapes", LEVEL_SETS)
+def test_level_table_covers_every_tile_once(shapes):
+    """Block b of the one launch takes the last level whose first tile is
+    <= b (the kernel's search), then a stream and a tile of it: every
+    (level, stream, tile) is covered exactly once, and every pixel of every
+    level lies in one tile."""
+    table, n_tiles = level_table(shapes)
+    seen = []
+    for b in range(n_tiles):
+        l = max(k for k, row in enumerate(table) if b >= row["tile0"])
+        row = table[l]
+        t = b - row["tile0"]
+        s, t = divmod(t, row["tiles_x"] * row["tiles_y"])
+        ty, tx = divmod(t, row["tiles_x"])
+        assert s < row["B"]
+        seen.append((l, s, ty, tx))
+    want = [(l, s, ty, tx) for l, row in enumerate(table) for s in range(row["B"])
+            for ty in range(row["tiles_y"]) for tx in range(row["tiles_x"])]
+    assert sorted(seen) == sorted(want) and len(set(seen)) == len(seen)
+    for (B, H, W), row in zip(shapes, table):
+        assert (row["tiles_y"] - 1) * TILE_H < H <= row["tiles_y"] * TILE_H
+        assert (row["tiles_x"] - 1) * TILE_W < W <= row["tiles_x"] * TILE_W
+        assert row["bias_step"] == np.float32(-1e-6 / (H * W))
+
+
+def test_level_table_rejects_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="at most 8"):
+        level_table([(1, 40, 40)] * 9)
+    with pytest.raises(ValueError, match="float32-exact"):
+        level_table([(1, 4096, 4096)])
+    with pytest.raises(ValueError, match="< 0"):
+        fast_nms_pyramid([torch.zeros((1, 8, 8))], -1.0)
+
+
+def test_level_table_struct_matches_the_kernel_abi():
+    """csrc/fast_nms.cu's FastLevel is two pointers and eight 4-byte fields
+    (48 bytes); FastLevels is 8 of them and two ints (392 bytes)."""
+    assert ctypes.sizeof(_build.FastLevel) == 48
+    assert _build.FastLevel.B.offset == 16 and _build.FastLevel.bias_step.offset == 40
+    assert ctypes.sizeof(_build.FastLevels) == 8 * 48 + 8
+    assert _build.FastLevels.n_levels.offset == 384 and _build.FastLevels.n_tiles.offset == 388
+
+
+def test_pyramid_on_the_cpu_is_the_plain_version_per_level(rng):
+    fast_nms.launches = 0
+    levels = [torch.from_numpy(rng.uniform(0, 255, s).astype(np.float32))
+              for s in [(2, 97, 200), (1, 33, 31), (3, 40, 45)]]
+    got = fast_nms_pyramid(levels, 7.0)
+    assert len(got) == 3
+    for x, g in zip(levels, got):
+        assert torch.equal(g, fast_nms_plain(x, 7.0))
+    assert fast_nms_pyramid([], 7.0) == [] and fast_nms.launches == 0
+
+
+def test_detect_scores_every_budgeted_level_in_one_call(rng, monkeypatch):
+    """detect_batched hands every level with a budget to one
+    fast_nms_pyramid call (one kernel launch per frame on the card)."""
+    calls = []
+
+    def spy(levels, min_th):
+        calls.append([tuple(x.shape) for x in levels])
+        return fast_nms_pyramid(levels, min_th)
+
+    monkeypatch.setattr(torb, "fast_nms_pyramid", spy)
+    cfg = ORBConfig(n_features=100)
+    torb.detect_batched(torch.from_numpy(rng.uniform(0, 255, (2, 120, 160)).astype(np.float32)), cfg)
+    assert len(calls) == 1
+    assert len(calls[0]) == sum(n > 0 for n in cfg.level_budgets())
+    assert calls[0][0] == (2, 120, 160)
+
+
 @pytest.mark.parametrize("corner", [[-1, 0], [0, -1], [100 - PSIZE + 1, 0], [0, 120 - PSIZE + 1]])
 def test_gather_rejects_windows_outside_the_atlas(corner):
     atlas = torch.zeros((100, 120), dtype=torch.uint8)
@@ -77,7 +169,7 @@ def test_wrappers_reject_other_devices():
 def test_descriptor_words_cross_both_ways(rng):
     words = rng.integers(0, 2**32, (5, 8), dtype=np.uint32)
     words[0] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1, 0xDEADBEEF, 0x80000001, 7]
-    t = array_to_tensor(words)
+    t = array_to_tensor(words, "cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(desc_to_numpy(t), words)
 
@@ -89,7 +181,7 @@ def test_features_cross_both_ways(rng):
     )
     npf = features_to_numpy(f)
     assert npf.desc.dtype == np.uint32
-    back = features_to_torch(npf)
+    back = features_to_torch(npf, "cpu")
     for a, b in zip(f, back):
         assert torch.equal(a, b)
 
@@ -104,7 +196,7 @@ def test_map_crosses_both_ways_bit_for_bit():
     rng = np.random.default_rng(3)
     ref = ref._replace(kf_kp_desc=rng.integers(0, 2**32, (4, 8, 8), dtype=np.uint32),
                        pt_desc=rng.integers(0, 2**32, (16, 8), dtype=np.uint32))
-    t = map_to_torch(ref)
+    t = map_to_torch(ref, "cpu")
     assert t.kf_kp_desc.dtype == torch.int32 and t.n_kf.shape == () and t.n_kf.dtype == torch.int32
     back = map_to_numpy(t)
     for name, a, b in zip(ref._fields, back, ref):
@@ -120,14 +212,14 @@ def test_frame_features_cross_both_ways(rng):
         xy=torch.from_numpy(rng.uniform(0, 100, (7, 2)).astype(np.float32)),
         level=torch.arange(7, dtype=torch.int32),
         angle=torch.zeros(7),
-        desc=array_to_tensor(rng.integers(0, 2**32, (7, 8), dtype=np.uint32)),
+        desc=array_to_tensor(rng.integers(0, 2**32, (7, 8), dtype=np.uint32), "cpu"),
         valid=torch.ones(7, dtype=torch.bool),
         u_right=torch.full((7,), -1.0),
         depth=torch.linspace(0, 3, 7),
     )
     npf = frame_features_to_numpy(f)
     assert npf.desc.dtype == np.uint32
-    for a, b in zip(f, frame_features_to_torch(npf)):
+    for a, b in zip(f, frame_features_to_torch(npf, "cpu")):
         assert torch.equal(a, b)
 
 
@@ -145,12 +237,57 @@ def test_kernels_match_plain_on_card():
         got = fast_nms(x, 7.0)
         torch.cuda.synchronize()
         assert torch.equal(got, fast_nms_plain(x, 7.0))
-    Ha, Wa = 300, 400
-    corner = torch.tensor(
-        [(0, 0), (Ha - PSIZE, Wa - PSIZE), (0, Wa - PSIZE), (Ha - PSIZE, 0), (17, 301)],
-        dtype=torch.int32, device="cuda")
-    for dtype in (torch.uint8, torch.float32):
-        atlas = torch.from_numpy(gen.integers(0, 256, (Ha, Wa))).to("cuda", dtype)
-        got = gather_patches(atlas, corner)
-        torch.cuda.synchronize()
-        assert torch.equal(got, gather_patches_plain(atlas, corner))
+    # A pitch of 16-byte multiples and one that shifts every row's alignment;
+    # 5 and 4001 windows, so the last block of 4 is ragged.
+    for Ha, Wa in ((300, 400), (300, 403)):
+        edges = [(0, 0), (Ha - PSIZE, Wa - PSIZE), (0, Wa - PSIZE), (Ha - PSIZE, 0), (17, 301)]
+        many = np.stack([gen.integers(0, Ha - PSIZE + 1, 3996), gen.integers(0, Wa - PSIZE + 1, 3996)], -1)
+        for corners in (edges, np.concatenate([edges, many])):
+            corner = torch.tensor(np.asarray(corners), dtype=torch.int32, device="cuda")
+            for dtype in (torch.uint8, torch.float32):
+                atlas = torch.from_numpy(gen.integers(0, 256, (Ha, Wa))).to("cuda", dtype)
+                got = gather_patches(atlas, corner)
+                torch.cuda.synchronize()
+                assert torch.equal(got, gather_patches_plain(atlas, corner)), (Ha, Wa, len(corners), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", LEVEL_SETS[1:] + [[(1, 480, 640), (2, 400, 533), (1, 134, 179)]])
+def test_fast_nms_pyramid_matches_plain_on_card(shapes):
+    """One launch over ragged level sets, each level equal to its plain
+    version, with plateaus (NMS ties) on the larger levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = np.random.default_rng(1)
+    levels = []
+    for shape in shapes:
+        img = gen.uniform(0, 255, shape).astype(np.float32)
+        img[:, 10:20, 10:20] = 255.0
+        levels.append(torch.from_numpy(img).cuda())
+    fast_nms.launches = 0
+    got = fast_nms_pyramid(levels, 7.0)
+    torch.cuda.synchronize()
+    assert fast_nms.launches == 1
+    for x, g in zip(levels, got):
+        assert torch.equal(g, fast_nms_plain(x, 7.0)), tuple(x.shape)
+
+
+@pytest.mark.cuda
+def test_gather_window_outside_the_atlas_fails_the_device_assert():
+    """On the card the wrapper reads nothing back: a window past the atlas
+    fails the kernel's device-side assert. A child process takes the dead
+    CUDA context."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    code = (
+        "import torch\n"
+        "from tpuslam_torch.ops.patches import gather_patches\n"
+        "atlas = torch.zeros((100, 120), dtype=torch.uint8, device='cuda')\n"
+        "corner = torch.tensor([[0, 0], [100 - 46, 0]], dtype=torch.int32, device='cuda')\n"
+        "gather_patches(atlas, corner)\n"
+        "torch.cuda.synchronize()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]

@@ -128,7 +128,7 @@ def test_pose_optimization_batched(rng):
 
     jobs = JaxPoseObs(*(jnp.asarray(v) for v in obs.values()))
     jR, jt, jinl, jn = jax_pose_optimization(jc, jnp.asarray(R0), jnp.asarray(t0), jobs)
-    R, t, inl, n = pose_optimization(cam, _t(R0), _t(t0), pose_obs_to_torch(jobs))
+    R, t, inl, n = pose_optimization(cam, _t(R0), _t(t0), pose_obs_to_torch(jobs, "cpu"))
     np.testing.assert_allclose(R.numpy(), np.asarray(jR), rtol=0, atol=1e-3)
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=0, atol=1e-3)
     np.testing.assert_array_equal(inl.numpy(), np.asarray(jinl))

@@ -81,7 +81,7 @@ def test_local_keyframe_mask_exact(case, max_kfs):
         obs[[3, 7, 11, 12, 20]] = [0, 1, 2, 3, 4]
     ref = jsteps.local_keyframe_mask(jcore.MapState(*map(jnp.asarray, m)), jnp.asarray(obs),
                                      max_kfs=max_kfs, ref_kf=jnp.int32(8))
-    got = tsteps.local_keyframe_mask(map_to_torch(m), torch.from_numpy(obs), max_kfs=max_kfs, ref_kf=8)
+    got = tsteps.local_keyframe_mask(map_to_torch(m, "cpu"), torch.from_numpy(obs), max_kfs=max_kfs, ref_kf=8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     if case == "tied_votes":
         # The stable ranking keeps the lowest tied slots; keyframe 9 joins

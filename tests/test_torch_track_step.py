@@ -56,7 +56,7 @@ def test_track_step_matches_jax(coherent_inputs):
     step, _ = __graft_entry__.entry_batched(1, 1000)
     jR, jt, jn, jv = (np.asarray(x) for x in jax.jit(step)(*[jnp.asarray(inp[k]) for k in TRACK_STEP_ARGS]))
     R, t, n, nv = track_step_batched(
-        CAM, ORBConfig(n_features=1000), *[array_to_tensor(inp[k]) for k in TRACK_STEP_ARGS]
+        CAM, ORBConfig(n_features=1000), *[array_to_tensor(inp[k], "cpu") for k in TRACK_STEP_ARGS]
     )
     assert int(nv) == int(jv)
     np.testing.assert_allclose(R.numpy(), jR, rtol=0, atol=1e-3)
@@ -73,9 +73,9 @@ def test_track_step_batch_equals_single(coherent_inputs):
     """Two streams in one call give what each gives alone."""
     inp = coherent_inputs
     cfg = ORBConfig(n_features=1000)
-    one = track_step_batched(CAM, cfg, *[array_to_tensor(inp[k]) for k in TRACK_STEP_ARGS])
+    one = track_step_batched(CAM, cfg, *[array_to_tensor(inp[k], "cpu") for k in TRACK_STEP_ARGS])
     two = track_step_batched(
-        CAM, cfg, *[array_to_tensor(np.concatenate([inp[k]] * 2)) for k in TRACK_STEP_ARGS]
+        CAM, cfg, *[array_to_tensor(np.concatenate([inp[k]] * 2), "cpu") for k in TRACK_STEP_ARGS]
     )
     for a, b in zip(one[:3], two[:3]):
         torch.testing.assert_close(b[1], a[0], rtol=0, atol=1e-5)

@@ -6,6 +6,6 @@ This package imports torch and numpy only; it never imports jax or tpuslam.
 
 The two TPU Pallas kernels of the path are hand-written CUDA kernels for
 Hopper (`csrc/`), built with nvcc at first use (`_build.py`). Their wrappers
-(`ops/fast.py::fast_nms`, `ops/patches.py::gather_patches`) launch the kernel
+(`ops/fast.py::fast_nms_pyramid`, `ops/patches.py::gather_patches`) launch the kernel
 for a CUDA tensor and run the plain PyTorch version for a CPU tensor.
 """

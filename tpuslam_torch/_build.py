@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source into one shared library with a plain C interface,
-which ctypes loads; no PyTorch headers are compiled, so a build takes seconds.
-The library lands in `_build/` beside this file, named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
+nvcc compiles every source into an object file, all of them at once in
+parallel, and links them into one shared library with a plain C interface,
+which ctypes loads; no PyTorch headers are compiled, so a build takes
+seconds. The library lands in `_build/` beside this file, named by a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises on a nonzero status.
 """
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -24,19 +26,38 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+MAX_LEVELS = 8  # csrc/fast_nms.cu kMaxLevels
+
+
+class FastLevel(ctypes.Structure):
+    """One level of csrc/fast_nms.cu's level table (struct FastLevel)."""
+
+    _fields_ = [
+        ("img", _P), ("out", _P), ("B", _I), ("H", _I), ("W", _I),
+        ("tiles_x", _I), ("tiles_y", _I), ("tile0", _I), ("bias_step", _F), ("pad_", _I),
+    ]
+
+
+class FastLevels(ctypes.Structure):
+    """csrc/fast_nms.cu's struct FastLevels, passed to the kernel by value."""
+
+    _fields_ = [("lv", FastLevel * MAX_LEVELS), ("n_levels", _I), ("n_tiles", _I)]
+
+
 # C signature of every entry point: (argtypes); all return int (cudaError_t).
 _SIGNATURES = {
-    # img, out, B, H, W, min_th, bias_step, stream
-    "tpuslam_fast_nms": [_P, _P, _I, _I, _I, _F, _F, _P],
-    # atlas, corner, out, n, Wa, stream
-    "tpuslam_gather_patches_u8": [_P, _P, _P, _I, _I, _P],
-    "tpuslam_gather_patches_f32": [_P, _P, _P, _I, _I, _P],
+    # levels, min_th, stream
+    "tpuslam_fast_nms_pyramid": [ctypes.POINTER(FastLevels), _F, _P],
+    # atlas, corner, out, n, Ha, Wa, stream
+    "tpuslam_gather_patches_u8": [_P, _P, _P, _I, _I, _I, _P],
+    "tpuslam_gather_patches_f32": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -66,26 +87,37 @@ def _lib_path(srcs) -> str:
 
 
 def build() -> dict:
-    """Compile the kernels unless an up-to-date library exists.
+    """Compile csrc/*.cu (one nvcc per source, all started together) and
+    link them, unless an up-to-date library exists.
     Returns {"path", "seconds", "log"}; raises if nvcc fails."""
     srcs = _sources()
     path = _lib_path(srcs)
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": "up to date"}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, log) for s, p, log in zip(srcs, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(s)} ({rc}):\n{log}" for s, rc, log in failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
     return {
         "path": path,
         "seconds": time.perf_counter() - t0,
-        "log": (proc.stdout + proc.stderr).strip(),
+        "log": "".join(logs).strip(),
     }
 
 

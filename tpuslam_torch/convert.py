@@ -19,7 +19,7 @@ from tpuslam_torch.ops.orb import ORBFeatures
 from tpuslam_torch.optim.pose import PoseObs
 
 
-def array_to_tensor(x, device="cpu") -> torch.Tensor:
+def array_to_tensor(x, device="cuda") -> torch.Tensor:
     """Any array np.asarray takes -> tensor on `device`; uint32 words become
     int32 bit patterns, every other dtype is kept."""
     a = np.asarray(x)
@@ -40,7 +40,7 @@ def camera_from(cam) -> PinholeCamera:
     return PinholeCamera(**cam._asdict())
 
 
-def features_to_torch(f, device="cpu") -> ORBFeatures:
+def features_to_torch(f, device="cuda") -> ORBFeatures:
     """The JAX package's ORBFeatures -> the port's."""
     return ORBFeatures(*(array_to_tensor(x, device) for x in f))
 
@@ -50,7 +50,7 @@ def features_to_numpy(f: ORBFeatures) -> ORBFeatures:
     return ORBFeatures(*(_to_numpy(n, x) for n, x in zip(ORBFeatures._fields, f)))
 
 
-def pose_obs_to_torch(obs, device="cpu") -> PoseObs:
+def pose_obs_to_torch(obs, device="cuda") -> PoseObs:
     """The JAX package's PoseObs -> the port's."""
     return PoseObs(*(array_to_tensor(x, device) for x in obs))
 
@@ -59,7 +59,7 @@ def _to_numpy(name: str, x: torch.Tensor) -> np.ndarray:
     return desc_to_numpy(x) if name.endswith("desc") else x.detach().cpu().numpy()
 
 
-def frame_features_to_torch(f, device="cpu") -> FrameFeatures:
+def frame_features_to_torch(f, device="cuda") -> FrameFeatures:
     """The JAX package's FrameFeatures -> the port's."""
     return FrameFeatures(*(array_to_tensor(x, device) for x in f))
 
@@ -69,7 +69,7 @@ def frame_features_to_numpy(f: FrameFeatures) -> FrameFeatures:
     return FrameFeatures(*(_to_numpy(n, x) for n, x in zip(FrameFeatures._fields, f)))
 
 
-def map_to_torch(m, device="cpu") -> MapState:
+def map_to_torch(m, device="cuda") -> MapState:
     """The JAX package's MapState (or one of numpy arrays) -> the port's:
     every field, the uint32 descriptor words as int32 bit patterns, the
     0-d watermarks as 0-d int32."""

@@ -78,7 +78,7 @@ class MapState(NamedTuple):
         return self.pt_xyz.shape[0]
 
 
-def make_empty_map(max_kf: int, n_features: int, max_pt: int, device="cpu") -> MapState:
+def make_empty_map(max_kf: int, n_features: int, max_pt: int, device="cuda") -> MapState:
     K, N, P = max_kf, n_features, max_pt
     f32, i32 = torch.float32, torch.int32
 

@@ -4,15 +4,19 @@ Port of tpuslam/ops/orb.py::fast_response + _nms3 (the plain version) and of
 the TPU kernel tpuslam/ops/fast_pallas.py::fast_nms_pallas, whose Hopper
 counterpart is csrc/fast_nms.cu. Both give the same map bit for bit: circle
 reads replicate the image edge, and the NMS tie-break bias is a float32
-product.
+product. The kernel takes every level of a pyramid in one launch
+(`fast_nms_pyramid`); `fast_nms` is its one-level case.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuslam_torch import _build
 from tpuslam_torch.ops.orb_common import FAST_OFFSETS
 
 
@@ -65,38 +69,91 @@ def fast_nms_plain(img: torch.Tensor, min_th: float) -> torch.Tensor:
     return _nms3(fast_response(img, min_th))
 
 
-def _fast_nms_cuda(img: torch.Tensor, min_th: float) -> torch.Tensor:
-    from tpuslam_torch import _build
+TILE_W, TILE_H = 30, 30  # output tile of csrc/fast_nms.cu (kOut, kOutH)
 
-    if img.dtype != torch.float32 or img.dim() != 3 or not img.is_contiguous():
-        raise ValueError(
-            f"fast_nms kernel takes a contiguous (B, H, W) float32 tensor, "
-            f"got {tuple(img.shape)} {img.dtype} contiguous={img.is_contiguous()}"
-        )
-    B, H, W = img.shape
-    if H * W >= 1 << 24:
-        raise ValueError(f"fast_nms: H*W = {H * W} exceeds float32-exact indices")
-    out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        status = _build.lib().tpuslam_fast_nms(
-            img.data_ptr(), out.data_ptr(), B, H, W,
-            float(min_th), nms_bias_step(H, W), stream,
-        )
+
+def level_table(shapes) -> tuple:
+    """The kernel's level table from (B, H, W) shapes alone: one dict per
+    level with its tiles across and down one stream and `tile0`, its first
+    block; blocks [tile0, tile0 + B * tiles_y * tiles_x) of the one launch
+    take the level's tiles stream by stream, row by row. Returns (table,
+    number of blocks)."""
+    if len(shapes) > _build.MAX_LEVELS:
+        raise ValueError(f"fast_nms: {len(shapes)} levels, the kernel takes at most {_build.MAX_LEVELS}")
+    table, n_tiles = [], 0
+    for B, H, W in shapes:
+        if H * W >= 1 << 24:
+            raise ValueError(f"fast_nms: H*W = {H * W} exceeds float32-exact indices")
+        tiles_x, tiles_y = -(-W // TILE_W), -(-H // TILE_H)
+        table.append(dict(B=B, H=H, W=W, tiles_x=tiles_x, tiles_y=tiles_y, tile0=n_tiles,
+                          bias_step=nms_bias_step(H, W)))
+        n_tiles += B * tiles_x * tiles_y
+    return table, n_tiles
+
+
+@functools.lru_cache(maxsize=64)
+def _params_template(shapes: tuple) -> bytes:
+    """The FastLevels table of these shapes with null pointers, as bytes."""
+    table, n_tiles = level_table(shapes)
+    params = _build.FastLevels(n_levels=len(table), n_tiles=n_tiles)
+    for lv, row in zip(params.lv, table):
+        for k in ("B", "H", "W", "tiles_x", "tiles_y", "tile0", "bias_step"):
+            setattr(lv, k, row[k])
+    return bytes(params)
+
+
+def _kernel_params(levels: list) -> tuple:
+    """(the kernel's FastLevels table, the outputs it fills) for CUDA
+    levels; checks dtype, layout and device, reads no tensor."""
+    dev = levels[0].device
+    for img in levels:
+        if img.dtype != torch.float32 or img.dim() != 3 or not img.is_contiguous():
+            raise ValueError(
+                f"fast_nms kernel takes contiguous (B, H, W) float32 tensors, "
+                f"got {tuple(img.shape)} {img.dtype} contiguous={img.is_contiguous()}"
+            )
+        if img.device != dev:
+            raise ValueError(f"fast_nms: levels on {dev} and {img.device}")
+    params = _build.FastLevels.from_buffer_copy(_params_template(tuple(tuple(img.shape) for img in levels)))
+    outs = [torch.empty_like(img) for img in levels]
+    for lv, img, out in zip(params.lv, levels, outs):
+        lv.img, lv.out = img.data_ptr(), out.data_ptr()
+    return params, outs
+
+
+def _fast_nms_cuda(levels: list, min_th: float) -> list:
+    params, outs = _kernel_params(levels)
+    if params.n_tiles == 0:
+        return outs
+    dev = levels[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = _build.lib().tpuslam_fast_nms_pyramid(params, float(min_th), stream)
     _build.check(status, "fast_nms")
     fast_nms.launches += 1
-    return out
+    return outs
+
+
+def fast_nms_pyramid(levels, min_th: float) -> list:
+    """NMS'd FAST score maps of a list of (B_l, H_l, W_l) float32 levels (at
+    most 8). CUDA tensors go through one launch of the kernel
+    (csrc/fast_nms.cu) for all of them; CPU tensors through the plain
+    version. `fast_nms.launches` counts kernel launches."""
+    if min_th < 0:
+        raise ValueError(f"fast_nms: min_th = {min_th} < 0")  # the kernel's one-sign arc search needs >= 0
+    levels = list(levels)
+    devices = {x.device.type for x in levels}
+    if devices == {"cuda"}:
+        return _fast_nms_cuda(levels, min_th)
+    if devices <= {"cpu"}:
+        return [fast_nms_plain(x, min_th) for x in levels]
+    raise ValueError(f"fast_nms: unsupported devices {sorted(devices)}")
 
 
 def fast_nms(img: torch.Tensor, min_th: float) -> torch.Tensor:
-    """NMS'd FAST score map of (B, H, W) float32 images. A CUDA tensor goes
-    through the kernel (csrc/fast_nms.cu); a CPU tensor through the plain
-    version. `fast_nms.launches` counts kernel launches."""
-    if img.device.type == "cuda":
-        return _fast_nms_cuda(img, min_th)
-    if img.device.type == "cpu":
-        return fast_nms_plain(img, min_th)
-    raise ValueError(f"fast_nms: unsupported device {img.device}")
+    """NMS'd FAST score map of (B, H, W) float32 images: fast_nms_pyramid
+    of one level. `fast_nms.launches` counts kernel launches."""
+    return fast_nms_pyramid([img], min_th)[0]
 
 
 fast_nms.launches = 0

@@ -1,7 +1,7 @@
 """ORB feature extraction over a batch of streams. Port of tpuslam/ops/orb.py.
 
-Pyramid, per-level FAST+NMS (kernel 1, ops/fast.py) and spatially uniform
-per-cell selection, then one orientation + descriptor pass over all levels
+Pyramid, FAST+NMS of every level in one launch (kernel 1, ops/fast.py) and
+spatially uniform per-cell selection, then one orientation + descriptor pass over all levels
 and streams: the edge-padded uint8 levels of every stream are stacked into
 one atlas, the 47x47 patch of every keypoint is gathered from it (kernel 2,
 ops/patches.py), and the intensity-centroid angle, the 7x7 blur and the
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpuslam_torch.ops.fast import fast_nms
+from tpuslam_torch.ops.fast import fast_nms_pyramid
 from tpuslam_torch.ops.image import _gaussian_kernel_1d, build_pyramid
 from tpuslam_torch.ops.patches import PSIZE, gather_patches
 
@@ -216,8 +216,9 @@ def _orient_and_describe_at(atlas: torch.Tensor, corner: torch.Tensor):
 
 def detect_batched(imgs: torch.Tensor, config: ORBConfig):
     """Everything before the descriptors, for (B, H, W) images: pyramid,
-    FAST+NMS and selection per level, and the stream-major uint8 atlas of
-    edge-padded levels with each keypoint's 47x47 patch corner in it.
+    FAST+NMS of every level with a budget (one kernel launch), selection per
+    level, and the stream-major uint8 atlas of edge-padded levels with each
+    keypoint's 47x47 patch corner in it.
     Returns (xy, response, level, valid), each (B, N, ...), then atlas
     (B * Ha, Wa) uint8 and corner (B * N, 2) int32."""
     B = imgs.shape[0]
@@ -226,13 +227,14 @@ def detect_batched(imgs: torch.Tensor, config: ORBConfig):
     budgets = config.level_budgets()
     scales = config.level_scales()
 
+    used = [l for l, n_l in enumerate(budgets) if n_l > 0]
+    scores = fast_nms_pyramid([levels[l] for l in used], config.min_th_fast)
+
     xs, resps, valids, lvls, corners, atlas_blocks = [], [], [], [], [], []
     row_off = 0
     W_atlas = levels[0].shape[-1] + 2 * _PAD
-    for l, (lvl_imgs, n_l) in enumerate(zip(levels, budgets)):
-        if n_l <= 0:
-            continue
-        score = fast_nms(lvl_imgs, config.min_th_fast)  # (B, H_l, W_l)
+    for l, score in zip(used, scores):  # score: (B, H_l, W_l)
+        lvl_imgs, n_l = levels[l], budgets[l]
         xy, resp, valid = _select_level_keypoints(score, n_l, config.cell_size, config.ini_th_fast)
         # Edge-padded uint8 level block; the detection border keeps every
         # valid keypoint's 47x47 patch inside its own block.
