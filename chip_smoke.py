@@ -28,7 +28,23 @@ Phases, any failure exits non-zero:
      aten::index call) at B=4 and B=1, per call and as the device's time
      alone, track_step_batched and fused_track_frame_image (with its
      launches and device->host reads per frame: 1 on a motion-model frame,
-     the verdict, and 0 on a reference-keyframe frame, or the run fails).
+     the verdict, and 0 on a reference-keyframe frame, or the run fails);
+  6. mono SLAM: the port's System.track_monocular on the card at the
+     tracker's default capacities (1536 keyframes, 2000 keypoint slots,
+     200,000 points), loop closing off, over 100 frames of the map slice's
+     trajectory: it must initialize within the first 10 frames, end OK,
+     track >= 95% of the frames after initialization, hold >= 10 valid
+     keyframes with points that mapping_front made, keep the Sim3-aligned
+     ATE below 3% of the path's span, and launch both kernels on every
+     frame. Then, on the finished map: device->host reads of a motion-model
+     and a reference-keyframe frame (<= 2 and <= 1, or the run fails) and of
+     one keyframe job, that job (Tracker._mapping_compute on a mid-session
+     snapshot) on the CPU against the card, and a forced LOST relocalized
+     from an earlier frame at its true place. Prints ms per frame by branch,
+     the keyframe frames split by stage, global BA, relocalization, the
+     peak memory allocated (the session, one frame, one keyframe job and
+     its stages, the relocalization) and a profile of the keyframe job and
+     of the relocalization.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -50,21 +66,27 @@ import torch
 import tpuslam_torch._build as build
 from tpuslam_torch.convert import array_to_tensor, map_to_numpy, map_to_torch
 from tpuslam_torch.geometry.camera import PinholeCamera
-from tpuslam_torch.mapstate.core import FrameFeatures
+from tpuslam_torch.mapstate.core import FrameFeatures, update_point_normals
 from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain, fast_nms_pyramid, fast_response
 from tpuslam_torch.ops.image import build_pyramid
 from tpuslam_torch.ops.orb import ORBConfig, detect_batched, extract_orb_batched
 from tpuslam_torch.ops.patches import PSIZE, _gather_patches_cuda, gather_patches, gather_patches_plain
 from tpuslam_torch.pipeline import steps
 from tpuslam_torch.pipeline.steps import fused_track_frame_image, local_keyframe_mask
+from tpuslam_torch.pipeline.system import System
 from tpuslam_torch.pipeline.track_step import track_step_batched
+from tpuslam_torch.pipeline.tracker import Tracker, TrackingState
 from tpuslam_torch.testing import (
     TRACK_STEP_ARGS,
     StepWallScene,
     build_depth_session,
     coherent_track_inputs,
+    keep_mapping_inputs,
+    mono_session,
     orbit_trajectory,
     pose_errors,
+    render_frames,
+    trajectory_ate,
 )
 
 B, N_FEATURES, N_LOCAL = 4, 1000, 4096
@@ -88,6 +110,17 @@ MAP_POSES = dict(step=0.02, yaw_rate=0.002, x0=-1.6)  # the view stays on the wa
 # velocity, the times the last.
 MAP_SNAP = (81, 82, 157, 158)
 MAP_T_TOL, MAP_R_TOL = 0.01, 0.2  # per frame, against ground truth (m, deg)
+# Mono SLAM: the map slice's trajectory through the port's System; 3 more
+# frames count reads on the finished map, then an earlier one relocalizes.
+MONO_FRAMES, MONO_INIT_BY, MONO_TRACKED = 100, 10, 0.95
+# ATE gate, a share of the path's span. tests/test_integration_mono.py holds
+# its 36-frame path (4.5 cm a frame) to 2%, as tests/test_torch_tracker_mono.py
+# does the port; on this path (2 cm a frame, 100 frames) the ATE moved from
+# 0.65% to 2.23% over four runs of code that differed only in summation order
+# (the card's float sums also come in another order each run), so the gate
+# is 3%.
+MONO_ATE_SHARE = 0.03
+MONO_SNAP_JOB, MONO_RELOC_FRAME = 10, 50
 INT_FIELDS = [steps.FUSED_ACCEPT, steps.FUSED_INITIAL_OK, steps.FUSED_USED_MM,
               steps.FUSED_N_TRACKED, *range(steps.FUSED_GATES, steps.FUSED_GATES + 4),
               steps.FUSED_NM]
@@ -420,6 +453,30 @@ def count_syncs(fn):
     return out, sites
 
 
+def _dev_time(e):
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
+def profile_call(fn):
+    """One call of fn under torch.profiler: (wall ms, kernel launches,
+    device us summed over the profiler's events, its 8 largest events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return wall_ms, launches, sum(_dev_time(e) for e in ev), sorted(ev, key=_dev_time, reverse=True)[:8]
+
+
+def log_top(top):
+    for e in top:
+        log(f"    {_dev_time(e) / 1e3:8.3f} ms {e.count:6d} x {e.key[:90]}")
+
+
 def map_times(s, snap: int, smi: str) -> dict:
     """ms per frame of fused_track_frame_image on a fixed late-session state,
     launches and device->host reads per frame, the device's busy share."""
@@ -432,21 +489,7 @@ def map_times(s, snap: int, smi: str) -> dict:
         if not sites:
             raise AssertionError("count_syncs saw not even the packed fetch")
         res[name + " syncs"] = sites[:-1]  # less the packed fetch, which the caller makes
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _fused(st, img, s.inv_sigma2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = prof.key_averages()
-    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-
-    def dev_time(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-
-    dev_us = sum(dev_time(e) for e in ev)
-    top = sorted(ev, key=dev_time, reverse=True)[:8]
+    wall_ms, launches, dev_us, top = profile_call(lambda: _fused(st, img, s.inv_sigma2))
     log(f"map slice times on {smi} (the frame-{snap} state, K={MAP['K']}, "
         f"P={MAP['P']}, {int(st.m.pt_valid.sum())} valid points):")
     for name in ("motion model", "reference keyframe"):
@@ -458,14 +501,204 @@ def map_times(s, snap: int, smi: str) -> dict:
         f"{dev_us / 1e3:.3f} ms of {wall_ms:.3f} ms wall under the profiler "
         f"({dev_us / 1e3 / res['motion model']:.1%} of the unprofiled "
         f"{res['motion model']:.3f} ms); most device time:")
-    for e in top:
-        log(f"    {dev_time(e) / 1e3:8.3f} ms {e.count:6d} x {e.key[:90]}")
+    log_top(top)
     res.update(launches=launches, device_ms=dev_us / 1e3, wall_ms=wall_ms)
     want = {"motion model": 1, "reference keyframe": 0}  # the verdict; none
     if any(len(res[k + " syncs"]) != n for k, n in want.items()):
         raise AssertionError(f"device->host reads in the step: "
                              f"{ {k: res[k + ' syncs'] for k in want} }, want {want}")
     return res
+
+
+def peak_gib(fn):
+    """(fn(), the peak memory allocated on the card while it ran, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _ms(xs) -> str:
+    return f"{statistics.median(xs):.3f} ms (n={len(xs)}, min {min(xs):.3f}, max {max(xs):.3f})" if xs else "none"
+
+
+def phase_mono(scene: StepWallScene, smi: str) -> dict:
+    """Mono SLAM through the port's System at the default capacities (see
+    the module docstring). Returns the kernels' launches in the session."""
+    poses = orbit_trajectory(MONO_FRAMES + 3, **MAP_POSES)
+    frames = render_frames(scene, CAM, poses, device="cuda")
+    system = System(CAM, orb=CFG, device="cuda", enable_loop_closing=False)
+    tr = system.tracker
+    tr.stage_sync = True  # the stage timers hold device time
+    kept = keep_mapping_inputs(tr, jobs={MONO_SNAP_JOB})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    rec, peaks = [], {}
+
+    def on_frame(i, out):
+        if "init" not in peaks and tr.state == TrackingState.OK:
+            peaks["init"] = torch.cuda.max_memory_allocated()  # up to the initial global BA
+            torch.cuda.reset_peak_memory_stats()
+        c = dict(tr.metrics.counters)
+        rec.append(dict(counters=c, launches={"fast_nms": fast_nms.launches,
+                                              "gather_patches": gather_patches.launches},
+                        state=tr.state.name))
+
+    t0 = time.perf_counter()
+    res = mono_session(system, frames[:MONO_FRAMES], on_frame=on_frame)
+    wall = time.perf_counter() - t0
+    launches = dict(rec[-1]["launches"])
+    peak = torch.cuda.max_memory_allocated()  # after initialization
+
+    # Each frame's kind from the counters' steps.
+    kinds, prev = [], {"launches": {"fast_nms": 0, "gather_patches": 0}, "counters": {}}
+    for r in rec:
+        d = {k: r["counters"].get(k, 0) - prev["counters"].get(k, 0) for k in r["counters"]}
+        kind = ("keyframe" if d.get("frames.keyframe") else "motion model" if d.get("frames.motion_model")
+                else "reference keyframe" if d.get("frames.reference_kf") else "initialization")
+        kinds.append(dict(kind=kind, launches={k: r["launches"][k] - prev["launches"][k] for k in launches},
+                          state=r["state"]))
+        prev = r
+    ok_at = [i for i, r in enumerate(rec) if r["state"] == "OK"]
+    init = ok_at[0] if ok_at else None
+    ms = [m for _, m in res]
+    for i in range(0, MONO_FRAMES, 10):
+        log(f"  frame {i}: {kinds[i]['state']} {kinds[i]['kind']}, {ms[i]:.1f} ms, launches "
+            f"{kinds[i]['launches']}")
+    m = tr.map
+    n_kf = int(m.kf_valid.sum())
+    n_pt = int(m.pt_valid.sum())
+    mapped = int(((m.pt_first_kf >= 2) & m.pt_valid).sum())
+    traj = tr.export_trajectory()
+    ate, n_tracked, (s, Ra, ta) = trajectory_ate(traj, poses)
+    C = np.stack([-np.asarray(R).T @ np.asarray(t) for R, t in poses[:MONO_FRAMES]])
+    span = float(np.linalg.norm(C[-1] - C[0]))
+    after = MONO_FRAMES - 1 - init if init is not None else 0
+    tracked_after = sum(1 for fid, _, _, lost in traj if not lost and init is not None and fid > init)
+    log(f"mono SLAM on {smi}: {MONO_FRAMES} frames in {wall:.1f} s (stage syncs on), initialized at "
+        f"frame {init}, end state {tr.state.name}; {n_kf} valid keyframes ({tr._n_kf_host} inserted), "
+        f"{n_pt} valid points ({mapped} made by mapping_front) of {m.capacity_pt}; tracked "
+        f"{tracked_after}/{after} frames after initialization; ATE {ate:.4f} m over a {span:.3f} m path "
+        f"({ate / span:.2%}), Sim3 scale {s:.4f}; peak memory allocated up to and with "
+        f"initialization {peaks.get('init', 0) / 2**30:.3f} GiB, after it {peak / 2**30:.3f} GiB")
+    log(f"  launches in the session: {launches}; frames by kind: "
+        f"{ {k: sum(1 for x in kinds if x['kind'] == k) for k in set(x['kind'] for x in kinds)} }")
+
+    # Times by frame kind and stage (stage syncs on, so each is device time).
+    st = tr.metrics.timer.samples
+    kf_idx = [i for i, x in enumerate(kinds) if x["kind"] == "keyframe"]
+    front, ba1, ba2 = ([v * 1e3 for v in st.get(k, [])] for k in ("map.front", "map.local_ba1", "map.local_ba2"))
+    rest = [ms[i] - f - b1 - b2 for i, f, b1, b2 in zip(kf_idx, front, ba1, ba2)]
+    log(f"mono SLAM times on {smi} (medians over the session's frames):")
+    for kind in ("motion model", "reference keyframe"):
+        log(f"  tracking frame without a keyframe, {kind} branch: "
+            f"{_ms([ms[i] for i, x in enumerate(kinds) if x['kind'] == kind])}")
+    log(f"  keyframe frame: {_ms([ms[i] for i in kf_idx])}; of which mapping_front {_ms(front)}, "
+        f"local BA chunk 1 {_ms(ba1)}, chunk 2 {_ms(ba2)}, the rest (tracking step, insertion, "
+        f"normals) {_ms(rest)}")
+    log(f"  initialization: two-view {_ms([v * 1e3 for v in st.get('init.two_view', [])])}, "
+        f"global BA (20 LM iterations over {m.capacity_kf * m.kf_obs_pt.shape[1]} edge slots) "
+        f"{_ms([v * 1e3 for v in st.get('init.global_ba', [])])}")
+
+    bad = []
+    if init is None or init >= MONO_INIT_BY:
+        bad.append(f"initialized at frame {init}")
+    if tr.state != TrackingState.OK:
+        bad.append(f"ended in {tr.state.name}")
+    if tracked_after < MONO_TRACKED * after:
+        bad.append(f"tracked {tracked_after}/{after}")
+    if n_kf < 10 or mapped == 0:
+        bad.append(f"{n_kf} keyframes, {mapped} mapped points")
+    if not ate < MONO_ATE_SHARE * span:
+        bad.append(f"ATE {ate:.4f} >= {MONO_ATE_SHARE:.0%} of {span:.3f}")
+    if any(x["launches"][k] < 1 for x in kinds for k in launches):
+        bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if bad:
+        raise AssertionError(f"mono SLAM: {bad}")
+
+    # Reads per frame on the finished map (no keyframes: localization mode).
+    tr.stage_sync = False
+    tr.localization_mode = True
+    reads = {}
+    for i, kind in zip(range(MONO_FRAMES, MONO_FRAMES + 3), (None, "reference keyframe", "motion model")):
+        if kind == "reference keyframe":
+            tr._velocity = None
+        before = dict(tr.metrics.counters)
+        (out, sites), gib = peak_gib(lambda: count_syncs(lambda: system.track_monocular(frames[i], i / 30.0)))
+        got = ("motion model" if tr.metrics.counters["frames.motion_model"] > before.get("frames.motion_model", 0)
+               else "reference keyframe")
+        if kind is not None:
+            if out is None or got != kind:
+                raise AssertionError(f"mono SLAM: frame {i} was not tracked by the {kind} branch")
+            reads[kind] = (sites, gib)
+    tr.localization_mode = False
+    for kind, n in (("motion model", 2), ("reference keyframe", 1)):
+        log(f"  device->host reads of a {kind} frame through the Tracker: {len(reads[kind][0])} "
+            f"(at most {n}), at {reads[kind][0]}; peak memory {reads[kind][1]:.3f} GiB")
+    reads = {k: v[0] for k, v in reads.items()}
+    if len(reads["motion model"]) > 2 or len(reads["reference keyframe"]) > 1:
+        raise AssertionError(f"mono SLAM: too many reads per frame: {reads}")
+
+    # One keyframe job on the card and on the CPU from the same snapshot.
+    m_snap, ki = kept[MONO_SNAP_JOB]
+    (out_gpu, sites), gib = peak_gib(lambda: count_syncs(lambda: tr._mapping_compute(m_snap, ki)))
+    log(f"  device->host reads of the keyframe job of slot {ki}: {len(sites)}, at {sites}; "
+        f"peak memory {gib:.3f} GiB")
+    cfg = tr.cfg
+    m_front, g_front = peak_gib(lambda: steps.mapping_front(
+        CAM, m_snap, ki, tr.inv_sigma2, 3.0, scale_factor=CFG.scale_factor, n_levels=CFG.n_levels,
+        nn_tri=20, nn_fuse=20, fuse_hop=cfg.fuse_second_hop, window=cfg.local_ba_window))
+    m_ba, g_ba = peak_gib(lambda: tr._local_ba(m_front, ki, iters=4))
+    _, g_norm = peak_gib(lambda: update_point_normals(m_ba, tr.scale_factors))
+    log(f"  its stages alone, peak memory: mapping_front {g_front:.3f} GiB, a local-BA chunk "
+        f"{g_ba:.3f} GiB, update_point_normals {g_norm:.3f} GiB")
+    tr_cpu = Tracker(tr.cfg, device="cpu")
+    t0 = time.perf_counter()
+    out_cpu = tr_cpu._mapping_compute(map_to_torch(map_to_numpy(m_snap), "cpu"), ki)
+    g = map_to_torch(map_to_numpy(out_gpu), "cpu")
+    live = (g.kf_obs_pt >= 0) | (out_cpu.kf_obs_pt >= 0)
+    same_obs = float((g.kf_obs_pt == out_cpu.kf_obs_pt)[live].float().mean())
+    v = out_cpu.kf_valid
+    dR = float((g.kf_R[v] - out_cpu.kf_R[v]).abs().max())
+    dt = float((g.kf_t[v] - out_cpu.kf_t[v]).abs().max())
+    log(f"  the keyframe job on the CPU: {time.perf_counter() - t0:.1f} s; card vs CPU: kf_valid "
+        f"{'equal' if torch.equal(g.kf_valid, v) else 'DIFFERENT'}, live kf_obs_pt equal {same_obs:.4f}, "
+        f"valid points {int(g.pt_valid.sum())} vs {int(out_cpu.pt_valid.sum())}, max |dR| {dR:.2e}, "
+        f"max |dt| {dt:.2e}")
+    if not (torch.equal(g.kf_valid, v) and same_obs >= 0.995 and dR < POSE_TOL and dt < POSE_TOL):
+        raise AssertionError("mono SLAM: the keyframe job differs on the card and the CPU")
+
+    wall, n_launch, dev_us, top = profile_call(lambda: tr._mapping_compute(m_snap, ki))
+    log(f"  one profiled keyframe job: {n_launch} kernel launches, device time {dev_us / 1e3:.3f} ms "
+        f"of {wall:.3f} ms wall under the profiler; most device time:")
+    log_top(top)
+
+    # Forced LOST, then an earlier frame: relocalization.
+    tr.state = TrackingState.LOST
+    tr._velocity = None
+    out, reloc_gib = peak_gib(lambda: system.track_monocular(frames[MONO_RELOC_FRAME], 99.0))
+    reloc_ms = tr.metrics.timer.samples["track.relocalize"][-1] * 1e3
+    if out is None or tr.state != TrackingState.OK:
+        raise AssertionError("mono SLAM: no relocalization after a forced LOST")
+    R, t = out
+    Rg, tg = poses[MONO_RELOC_FRAME]
+    err = float(np.linalg.norm(s * (-R.T @ t) @ Ra.T + ta - (-np.asarray(Rg).T @ np.asarray(tg))))
+    log(f"  relocalization of frame {MONO_RELOC_FRAME} after a forced LOST: {reloc_ms:.3f} ms "
+        f"(brute-force match over {m.capacity_pt} point slots, EPnP RANSAC, pose optimization, "
+        f"TrackLocalMap); aligned centre error {err:.4f} m; peak memory {reloc_gib:.3f} GiB")
+    if not err < MONO_ATE_SHARE * span:
+        raise AssertionError(f"mono SLAM: relocalized {err:.4f} m from the truth")
+    tr.state = TrackingState.LOST
+    wall, n_launch, dev_us, top = profile_call(lambda: system.track_monocular(frames[MONO_RELOC_FRAME], 99.0))
+    log(f"  the same relocalization profiled: {n_launch} kernel launches, device time "
+        f"{dev_us / 1e3:.3f} ms of {wall:.3f} ms wall under the profiler; most device time:")
+    log_top(top)
+    if tr.state != TrackingState.OK:
+        raise AssertionError("mono SLAM: the profiled relocalization failed")
+    return launches
 
 
 def kernel_times(imgs, smi: str) -> dict:
@@ -535,6 +768,7 @@ def main() -> int:
     log(f"times on {smi}:")
     log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
     map_times(session, late, smi)
+    mono_launches = phase_mono(scene, smi)
 
     sources = {
         "fast_nms": ("tpuslam_torch/csrc/fast_nms.cu", "tpuslam/ops/fast_pallas.py:100"),
@@ -543,7 +777,7 @@ def main() -> int:
     main_b = kt[B]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + map_launches[name],
+         "launches": launches[name] + map_launches[name] + mono_launches[name],
          "launches_per_frame": statistics.median(d[name] for d in per_frame),
          "max_abs_err": err[name],
          "ms": main_b["per_call"][name], "plain_ms": main_b["per_call"][name + " plain"],

@@ -33,6 +33,8 @@ from tpuslam_torch.ops import orb as torb
 from tpuslam_torch.ops.fast import TILE_H, TILE_W, fast_nms, fast_nms_plain, fast_nms_pyramid, level_table
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
 from tpuslam_torch.ops.patches import PSIZE, gather_patches, gather_patches_plain
+from tpuslam_torch.pipeline.system import System
+from tpuslam_torch.pipeline.tracker import Tracker
 
 torch.set_num_threads(2)
 
@@ -46,7 +48,11 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam'))\n"
         "assert not bad, bad\n"
-        "assert {'tpuslam_torch.mapstate.core', 'tpuslam_torch.pipeline.steps'} <= set(sys.modules)\n"
+        "assert {'tpuslam_torch.mapstate.core', 'tpuslam_torch.pipeline.steps',\n"
+        "        'tpuslam_torch.pipeline.tracker', 'tpuslam_torch.pipeline.system',\n"
+        "        'tpuslam_torch.sfm.initializer', 'tpuslam_torch.sfm.pnp', 'tpuslam_torch.sfm.sim3solver',\n"
+        "        'tpuslam_torch.optim.ba', 'tpuslam_torch.geometry.triangulation',\n"
+        "        'tpuslam_torch.utils.metrics'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -69,7 +75,8 @@ def test_cpu_tensors_take_the_plain_versions(rng):
 
 @pytest.mark.parametrize("fn", [
     convert.array_to_tensor, convert.features_to_torch, convert.pose_obs_to_torch,
-    convert.frame_features_to_torch, convert.map_to_torch, mapcore.make_empty_map,
+    convert.frame_features_to_torch, convert.map_to_torch, convert.ba_problem_to_torch,
+    mapcore.make_empty_map, Tracker, System,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -291,3 +298,84 @@ def test_gather_window_outside_the_atlas_fails_the_device_assert():
                          text=True, timeout=300)
     assert out.returncode != 0
     assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
+def _ba_problem(gen, device, K=6, P=150):
+    """A perturbed bundle-adjustment problem in numpy: K keyframes in an arc
+    over P points, keyframe 0 fixed."""
+    from tpuslam_torch.geometry.camera import PinholeCamera, project
+    from tpuslam_torch.geometry.se3 import so3_exp
+    from tpuslam_torch.optim.ba import BAProblem
+
+    cam = PinholeCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
+    X = np.stack([gen.uniform(-3, 3, P), gen.uniform(-2, 2, P), gen.uniform(5, 12, P)], -1).astype(np.float32)
+    R = so3_exp(torch.tensor([[0.0, -0.04 * k, 0.0] for k in range(K)]))
+    t = torch.tensor([[-0.3 * k, 0.0, 0.0] for k in range(K)])
+    uv = project(cam, torch.einsum("kij,pj->kpi", R, torch.from_numpy(X)) + t[:, None])
+    kf = torch.arange(K).repeat_interleave(P)
+    pt = torch.arange(P).repeat(K)
+    uvr = torch.cat([uv.reshape(-1, 2) + torch.from_numpy(gen.normal(size=(K * P, 2)).astype(np.float32)) * 0.3,
+                     -torch.ones(K * P, 1)], -1)
+    prob = BAProblem(R=R, t=t + torch.from_numpy(gen.normal(size=(K, 3)).astype(np.float32)) * 0.05 * (torch.arange(K) > 0)[:, None],
+                     X=torch.from_numpy(X + gen.normal(size=X.shape).astype(np.float32) * 0.1),
+                     kf=kf.int(), pt=pt.int(), uvr=uvr, inv_sigma2=torch.ones(K * P),
+                     valid=torch.from_numpy(gen.uniform(size=K * P) > 0.1), fixed_kf=torch.arange(K) == 0,
+                     fixed_pt=torch.zeros(P, dtype=torch.bool))
+    return cam, BAProblem(*(x.to(device) for x in prob))
+
+
+@pytest.mark.cuda
+def test_bundle_adjusters_on_card_match_cpu():
+    """Both solvers on the card against the CPU: float sums in another order
+    (atomics), so poses within 1e-3 and points within 1e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.optim.ba import bundle_adjustment, dense_schur_bundle_adjustment
+
+    cam, prob = _ba_problem(np.random.default_rng(0), "cpu")
+    _, gprob = _ba_problem(np.random.default_rng(0), "cuda")
+    active = torch.tensor([1, 2, 3, 4, 5, -1])
+    for solve in (lambda p: bundle_adjustment(cam, p, iters=10),
+                  lambda p: dense_schur_bundle_adjustment(cam, p, active.to(p.X.device), iters=10)):
+        ref, got = solve(prob), solve(gprob)
+        for a, b, tol in zip(got[:3], ref[:3], (1e-3, 1e-3, 1e-2)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_mono_session_on_card_matches_cpu():
+    """The monocular System on the card and on the CPU over the same 14
+    rendered frames (320x240, 500 features, small map), RANSAC drawn from
+    the same seed: the same frames tracked from the same initialization
+    frame, both kernels on every frame, keyframe counts within one (float
+    sums in another order can tip a keyframe decision), and both
+    trajectories within 3 cm of the truth after Sim3 alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.geometry.camera import PinholeCamera
+    from tpuslam_torch.testing import (
+        StepWallScene,
+        mono_session,
+        orbit_trajectory,
+        render_frames,
+        trajectory_ate,
+    )
+
+    cam = PinholeCamera(fx=350.0, fy=350.0, cx=160.0, cy=120.0, width=320, height=240)
+    scene = StepWallScene(np.random.default_rng(11))
+    poses = orbit_trajectory(14, step=0.045)
+    frames = render_frames(scene, cam, poses)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        system = System(cam, orb=ORBConfig(n_features=500), device=device, max_keyframes=16,
+                        max_points=4096, kf_max_frames=10, enable_loop_closing=False)
+        fast_nms.launches = gather_patches.launches = 0
+        res = mono_session(system, [f.to(device) for f in frames])
+        runs[device] = (system, [out is not None for out, _ in res], fast_nms.launches, gather_patches.launches)
+    (cs, c_ok, *_), (gs, g_ok, g_fast, g_gather) = runs["cpu"], runs["cuda"]
+    assert c_ok == g_ok and g_ok.index(True) < 6 and g_ok[-1]
+    assert g_fast == g_gather == 14
+    assert abs(gs.tracker._n_kf_host - cs.tracker._n_kf_host) <= 1 and gs.tracker._n_kf_host >= 5
+    for s in (cs, gs):
+        ate, n, _ = trajectory_ate(s.tracker.export_trajectory(), poses)
+        assert n == sum(c_ok) and ate < 0.03

@@ -16,6 +16,7 @@ import torch
 from tpuslam_torch.geometry.camera import PinholeCamera
 from tpuslam_torch.mapstate.core import FrameFeatures, MapState
 from tpuslam_torch.ops.orb import ORBFeatures
+from tpuslam_torch.optim.ba import BAProblem
 from tpuslam_torch.optim.pose import PoseObs
 
 
@@ -81,3 +82,8 @@ def map_to_numpy(m: MapState) -> MapState:
     as the JAX package's uint32 words. jnp.asarray of each field gives the
     JAX package's MapState: `jax_core.MapState(*map(jnp.asarray, ...))`."""
     return MapState(*(_to_numpy(n, x) for n, x in zip(MapState._fields, m)))
+
+
+def ba_problem_to_torch(prob, device="cuda") -> BAProblem:
+    """The JAX package's BAProblem (or one of numpy arrays) -> the port's."""
+    return BAProblem(*(array_to_tensor(x, device) for x in prob))

@@ -84,5 +84,57 @@ def se3_inverse(R, t):
 
 
 def se3_apply(R, t, x):
-    """Apply transform to points x (..., 3)."""
+    """Apply transform to points x (..., 3). With R (..., 3, 3) and x (...,
+    N, 3) (a transform for each set of N points) it is the matrix product
+    x R^T, which rounds as the JAX package's CPU matmul does; t then
+    broadcasts against (..., N, 3). Otherwise R's batch dims broadcast
+    against x's."""
+    if R.dim() == x.dim():
+        return x @ R.transpose(-1, -2) + t
     return (R @ x[..., None])[..., 0] + t
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) [x, y, z, w] -> rotation matrix (..., 3, 3)."""
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
+            torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) [x, y, z, w],
+    w >= 0. Branch-free Shepperd's method: all four candidates, the best
+    conditioned one selected (the first on a tie, as jnp.argmax)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0], dim=-1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1], dim=-1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2], dim=-1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3], dim=-1)
+
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(scores, dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)  # (..., 4, 4)
+    q = torch.gather(qs, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+    return q * torch.where(q[..., 3:4] < 0.0, -1.0, 1.0)

@@ -389,11 +389,17 @@ def update_point_normals(m: MapState, scale_factors: torch.Tensor) -> MapState:
     # Distance range from the reference keyframe's observation octave.
     ref = torch.clamp(m.pt_ref_kf, 0, K - 1).long()
     dist = torch.linalg.norm(m.pt_xyz - C[ref], dim=-1)
-    obs_in_ref = m.kf_obs_pt[ref] == torch.arange(P, device=dev)[:, None]  # (P, N)
-    # The first observing slot, 0 where there is none: jnp.argmax on bool;
-    # torch.argmax takes no bool, so cast.
-    slot = obs_in_ref.to(torch.uint8).argmax(dim=1)
-    has_ref = obs_in_ref.any(dim=1)
+    # The first slot of the reference keyframe that holds the point, 0 where
+    # none does (JAX's argmax over kf_obs_pt[ref] == p), as a min over the
+    # (K, N) table: no (P, N) plane.
+    obs = m.kf_obs_pt.reshape(-1)
+    kf_of = torch.arange(K, device=dev).repeat_interleave(N)
+    hit = (obs >= 0) & (kf_of == ref[obs.clamp(min=0).long()])
+    first = torch.full((P + 1,), N, dtype=torch.int64, device=dev).scatter_reduce(
+        0, torch.where(hit, obs, P).long(), torch.arange(N, device=dev).repeat(K),
+        reduce="amin", include_self=True)[:P]
+    has_ref = first < N
+    slot = torch.where(has_ref, first, 0)
     octave = m.kf_kp_level[ref, slot].long()
     n_levels = scale_factors.shape[0]
     max_dist = dist * scale_factors[torch.clamp(octave, 0, n_levels - 1)]

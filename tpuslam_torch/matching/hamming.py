@@ -2,8 +2,9 @@
 tpuslam/matching/hamming.py.
 
 Descriptors are (..., 8) int32 bit patterns of the uint32 words. torch has
-no popcount, so each word is widened to int64 (no sign, no overflow) and
-counted with the SWAR bit trick.
+no popcount: a pair's distance widens each word to int64 (no sign, no
+overflow) and counts it with the SWAR bit trick; the all-pairs matrix is a
+product of 0/1 bit planes.
 """
 
 from __future__ import annotations
@@ -30,13 +31,17 @@ def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _popcount32(_words(a) ^ _words(b)).sum(dim=-1).to(torch.int32)
 
 
+def _bit_planes(d: torch.Tensor) -> torch.Tensor:
+    """(..., 8) descriptor words -> (..., 256) float32 bits (0 or 1)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=d.device)
+    return ((d[..., :, None] >> shifts) & 1).reshape(*d.shape[:-1], -1).to(torch.float32)
+
+
 def hamming_matrix(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """All-pairs distances: q (..., Nq, 8) x c (..., Nc, 8) -> (..., Nq, Nc)
-    int32. Accumulates one word at a time, so the transient is one
-    (..., Nq, Nc) int64 plane rather than eight."""
-    qw, cw = _words(q), _words(c)
-    out = None
-    for w in range(q.shape[-1]):
-        pc = _popcount32(qw[..., :, None, w] ^ cw[..., None, :, w])
-        out = pc if out is None else out + pc
-    return out.to(torch.int32)
+    int32, from the bit planes: |a xor b| = |a| + |b| - 2 a.b, one matrix
+    product. Exact: the products are 0 or 1 (exact in TF32 and bf16 too)
+    and the float32 sums stay below 2^24."""
+    qb, cb = _bit_planes(q), _bit_planes(c)
+    dot = qb @ cb.transpose(-1, -2)
+    return (qb.sum(-1)[..., :, None] + cb.sum(-1)[..., None, :] - 2.0 * dot).to(torch.int32)

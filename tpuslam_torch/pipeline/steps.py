@@ -1,5 +1,5 @@
-"""Tracking step functions over (MapState, frame tensors). Port of the
-tracking half of tpuslam/pipeline/steps.py.
+"""Tracking and mapping step functions over (MapState, frame tensors).
+Port of tpuslam/pipeline/steps.py (all of it but stereo_frame_features).
 
 Each function returns what its JAX counterpart returns, in the same order.
 The JAX package compiles the fused step into one program whose data-
@@ -10,17 +10,37 @@ read (`_fused_track_core`). Everything else stays on the device.
 
 Scatters follow the JAX package's rules (pipeline/_index.py): the last of
 repeated writes wins, out-of-bounds writes are dropped, and the fixed-size
-nonzero lists are built without a sync.
+nonzero lists are built without a sync. Rankings that lax.top_k or a
+stable argsort make in the JAX package keep their ties to the lower index
+here (a stable sort).
+
+The mapping half (LocalMapping: triangulation, point culling, fusion,
+keyframe culling, local bundle adjustment) takes the keyframe it works
+around as a host int, as the tracker holds it, and batches the neighbour
+pairs the JAX package vmaps in chunks of 4 as a leading dim of 4.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpuslam_torch.geometry.camera import PinholeCamera, project, undistort_points
-from tpuslam_torch.geometry.se3 import se3_apply, se3_compose, se3_inverse
-from tpuslam_torch.mapstate.core import FrameFeatures, MapState, shared_point_counts
+from tpuslam_torch.geometry.se3 import hat, se3_apply, se3_compose, se3_inverse
+from tpuslam_torch.geometry.triangulation import triangulate_dlt
+from tpuslam_torch.mapstate.core import (
+    FrameFeatures,
+    MapState,
+    _nanmedian_last,
+    compute_point_descriptors,
+    covisibility_weights,
+    insert_points,
+    shared_point_counts,
+)
+from tpuslam_torch.matching.hamming import hamming_matrix
 from tpuslam_torch.matching.search import (
+    _BIG,
     TH_HIGH,
     TH_LOW,
     match_nn_ratio,
@@ -28,6 +48,8 @@ from tpuslam_torch.matching.search import (
     rotation_consistency_mask,
     search_by_projection_points,
 )
+from tpuslam_torch.ops.orb import _stable_topk
+from tpuslam_torch.optim.ba import BAProblem, dense_schur_bundle_adjustment
 from tpuslam_torch.optim.pose import PoseObs, pose_optimization
 from tpuslam_torch.pipeline._index import (
     nonzero_static,
@@ -457,3 +479,490 @@ def fused_track_frame_image(cam: PinholeCamera, orb, m: MapState, img: torch.Ten
         max_local_pts, cand_cap,
     )
     return (feats,) + out
+
+
+# ---------------------------------------------------------------------------
+# Relocalization and LocalMapping.
+# ---------------------------------------------------------------------------
+
+def reloc_search_by_projection(cam: PinholeCamera, m: MapState, kf: int, R, t, cur: FrameFeatures,
+                               obs_pt, scale_factor: float = 1.2, n_levels: int = 8,
+                               window: float = 10.0, max_desc_dist: int = 100):
+    """Relocalization's projective widening (ORBmatcher::SearchByProjection,
+    the relocalization variant): project keyframe `kf`'s map points with the
+    current pose estimate and match them into still-free keypoints, skipping
+    points already found. Returns (obs_pt, n_added)."""
+    P = m.capacity_pt
+    dev = m.pt_xyz.device
+    obs_k = m.kf_obs_pt[kf]
+    pt_idx = obs_k.clamp(min=0).long()
+    has_k = (obs_k >= 0) & m.kf_kp_valid[kf] & m.pt_valid[pt_idx]
+    # Points already assigned this frame (JAX writes False at slot 0 for
+    # every unassigned keypoint, in order: the last write wins).
+    already = scatter_last(torch.zeros(P, dtype=torch.bool, device=dev), obs_pt.clamp(min=0), obs_pt >= 0)
+    Xw = m.pt_xyz[pt_idx]
+    p_cam = se3_apply(R, t, Xw)
+    uv = project(cam, p_cam)
+    dist_w = torch.linalg.norm(Xw - (-(R.T @ t)), dim=-1)
+    in_range = (dist_w >= m.pt_min_dist[pt_idx]) & (dist_w <= m.pt_max_dist[pt_idx])
+    cand = has_k & ~already[pt_idx] & (p_cam[:, 2] > 0.05) & _in_image(cam, uv) & in_range
+    pred_lvl = predict_scale(dist_w, m.pt_max_dist[pt_idx], scale_factor, n_levels)
+    idx, _, ok = search_by_projection_points(
+        uv, m.pt_desc[pt_idx], cand, window * sf_pow(scale_factor, pred_lvl),
+        torch.clamp(pred_lvl - 1, min=0), pred_lvl + 1,
+        cur.xy, cur.desc, cur.level, cur.angle, cur.valid & ~(obs_pt >= 0),
+        max_dist=max_desc_dist, nn_ratio=0.0,
+    )
+    # Row e holds the candidate point of keyframe slot e; its match is idx[e].
+    old = obs_pt[idx]
+    new_obs = scatter_last(obs_pt, idx, torch.where(ok & (old < 0), obs_k, old))
+    return new_obs, (new_obs >= 0).sum() - (obs_pt >= 0).sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _intrinsics(cam: PinholeCamera, device: torch.device):
+    """(K, K^-1) on `device`, copied there once per camera and device."""
+    return cam.K.to(device), torch.linalg.inv(cam.K).to(device)
+
+
+def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new: int, kf_old, inv_sigma2_table,
+                           scale_factor: float = 1.2, n_levels: int = 8):
+    """LocalMapping::CreateNewMapPoints between keyframe `kf_new` and each of
+    the keyframes `kf_old` (a (C,) tensor: C pairs at once): epipolar-
+    constrained matching of unmatched keypoints, two-view triangulation,
+    cheirality / parallax / reprojection / scale-consistency vetting.
+
+    Returns (xyz (C, N, 3), desc (N, 8), normals (C, N, 3), min_d (C, N),
+    max_d (C, N), slot_new (N,), slot_old (C, N), good (C, N)): one candidate
+    point per new-keyframe keypoint and pair."""
+    N = m.kf_kp_xy.shape[1]
+    dev = m.kf_R.device
+    ko = kf_old.long()
+    R1, t1 = m.kf_R[ko], m.kf_t[ko]             # (C, 3, 3), (C, 3)
+    R2, t2 = m.kf_R[kf_new], m.kf_t[kf_new]     # (3, 3), (3,)
+    C1 = -(R1.transpose(-1, -2) @ t1[..., None])[..., 0]
+    C2 = -(R2.T @ t2)
+
+    # Baseline gate: skip a pair whose baseline is below 1% of the new
+    # keyframe's median scene depth.
+    obs_new = m.kf_obs_pt[kf_new]
+    obs_ok = (obs_new >= 0) & m.kf_kp_valid[kf_new]
+    pc = se3_apply(R2, t2, m.pt_xyz[obs_new.clamp(min=0).long()])
+    med = _nanmedian_last(torch.where(obs_ok, pc[:, 2], float("nan")))
+    med = torch.where(torch.isnan(med), 1.0, med)
+    pair_ok = torch.linalg.norm(C2 - C1, dim=-1) > 0.01 * med  # (C,)
+    free1 = m.kf_kp_valid[ko] & (m.kf_obs_pt[ko] < 0) & pair_ok[:, None]
+    free2 = m.kf_kp_valid[kf_new] & (m.kf_obs_pt[kf_new] < 0) & pair_ok[:, None]
+
+    # F12 relates old (1) to new (2); the epipolar line of an old keypoint
+    # in the new image is F12^T x1.
+    R12 = R1 @ R2.T
+    t12 = t1 - (R12 @ t2[:, None])[..., 0]
+    K, Kinv = _intrinsics(cam, dev)
+    F12 = Kinv.T @ hat(t12) @ R12 @ Kinv
+    xy1, xy2 = m.kf_kp_xy[ko], m.kf_kp_xy[kf_new]
+    ones = torch.ones((*xy1.shape[:-1], 1), device=dev)
+    l2 = torch.cat([xy1, ones], dim=-1) @ F12  # (C, N, 3)
+    x2h = torch.cat([xy2, ones[0]], dim=-1)
+    num = torch.abs(l2 @ x2h.T)  # (C, N1, N2)
+    den = torch.sqrt(torch.clamp(l2[..., 0] ** 2 + l2[..., 1] ** 2, min=1e-12))[..., None]
+    lvl_new = torch.clamp(m.kf_kp_level[kf_new], 0, n_levels - 1).long()
+    epi_ok = (num / den) ** 2 < 3.84 * (1.0 / inv_sigma2_table[lvl_new])
+
+    pair = free1[:, :, None] & free2[:, None, :] & epi_ok
+    dist = torch.where(pair, hamming_matrix(m.kf_kp_desc[ko], m.kf_kp_desc[kf_new]), _BIG)
+    i1 = torch.argmin(dist, dim=1)  # best old keypoint for each new one (the first)
+    d1 = torch.gather(dist, 1, i1[:, None])[:, 0]
+    matched = d1 <= TH_LOW
+    ang_old = torch.gather(m.kf_kp_angle[ko], 1, i1)
+    matched = rotation_consistency_mask(ang_old, m.kf_kp_angle[kf_new], matched)
+    matched = resolve_duplicates(i1, d1, matched, N)
+
+    C = ko.shape[0]
+    uv1m = torch.gather(xy1, 1, i1[..., None].expand(C, N, 2))
+    P1 = K @ torch.cat([R1, t1[..., None]], dim=-1)
+    P2 = K @ torch.cat([R2, t2[:, None]], dim=-1)
+    Xw, w = triangulate_dlt(P1[:, None].expand(C, N, 3, 4), P2.expand(C, N, 3, 4),
+                            uv1m, xy2.expand(C, N, 2))
+    finite = torch.all(torch.isfinite(Xw), dim=-1) & (torch.abs(w) > 1e-9)
+
+    r1v = Xw - C1[:, None]
+    r2v = Xw - C2
+    d1v = torch.linalg.norm(r1v, dim=-1)
+    d2v = torch.linalg.norm(r2v, dim=-1)
+    cosp = torch.sum(r1v * r2v, dim=-1) / torch.clamp(d1v * d2v, min=1e-12)
+    parallax_ok = cosp < 0.9998
+
+    p1 = se3_apply(R1, t1[:, None], Xw)
+    p2 = se3_apply(R2, t2, Xw)
+    lvl_old = torch.clamp(torch.gather(m.kf_kp_level[ko], 1, i1), 0, n_levels - 1).long()
+    e1 = torch.sum((project(cam, p1) - uv1m) ** 2, dim=-1)
+    e2 = torch.sum((project(cam, p2) - xy2) ** 2, dim=-1)
+    reproj_ok = ((e1 < 5.991 * (1.0 / inv_sigma2_table[lvl_old]))
+                 & (e2 < 5.991 * (1.0 / inv_sigma2_table[lvl_new])))
+    chei = (p1[..., 2] > 0) & (p2[..., 2] > 0)
+
+    sf1 = sf_pow(scale_factor, torch.gather(m.kf_kp_level[ko], 1, i1))
+    sf2 = sf_pow(scale_factor, m.kf_kp_level[kf_new])
+    ratio_d = d1v / torch.clamp(d2v, min=1e-9)
+    ratio_o = sf1 / sf2
+    ratio_factor = 1.5 * scale_factor
+    scale_ok = (ratio_d < ratio_o * ratio_factor) & (ratio_d > ratio_o / ratio_factor)
+
+    good = matched & finite & parallax_ok & chei & reproj_ok & scale_ok
+    nvec = r2v / torch.clamp(torch.linalg.norm(r2v, dim=-1, keepdim=True), min=1e-9)
+    max_d = d2v * sf2
+    min_d = max_d / (scale_factor ** (n_levels - 1))
+    return (Xw, m.kf_kp_desc[kf_new], nvec, 0.8 * min_d, 1.2 * max_d,
+            torch.arange(N, dtype=torch.int32, device=dev), i1.to(torch.int32), good)
+
+
+def build_local_ba_problem(m: MapState, center_kf: int, window: int):
+    """The bundle-adjustment edges over the centre keyframe's covisibility
+    neighbourhood (Optimizer::LocalBundleAdjustment). Active: the centre and
+    every keyframe sharing >= 15 points with it, or, with none, the `window`
+    newest keyframes by frame id. Fixed: every other valid keyframe and
+    keyframe 0. Returns (kf (K*N,), pt (K*N,), uvr (K*N, 3), has (K*N,),
+    fixed_kf (K,), fixed_pt (P,))."""
+    K, N = m.kf_obs_pt.shape
+    P = m.capacity_pt
+    dev = m.kf_R.device
+    idx = torch.arange(K, device=dev)
+    fid = m.kf_frame_id
+    eligible = m.kf_valid & (fid <= fid[center_kf])
+    newer = eligible[None, :] & (fid[None, :] > fid[:, None])
+    recency = eligible & (newer.sum(dim=1) < window)
+    shared = shared_point_counts(m, center_kf)
+    covis = m.kf_valid & (shared >= 15.0) & (idx != center_kf)
+    active = torch.where(covis.any(), covis | (m.kf_valid & (idx == center_kf)), recency)
+    fixed_kf = m.kf_valid & ~active | (idx == 0)
+
+    kfi = torch.arange(K, dtype=torch.int32, device=dev).repeat_interleave(N)
+    pti = m.kf_obs_pt.reshape(-1)
+    has = (pti >= 0) & m.kf_kp_valid.reshape(-1) & m.kf_valid[kfi.long()]
+    uvr = torch.cat([m.kf_kp_xy.reshape(K * N, 2), m.kf_kp_uright.reshape(K * N, 1)], dim=-1)
+    seen_active = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill(
+        0, torch.where(has & active[kfi.long()], pti, P).long(), True)[:P]
+    return kfi, pti.clamp(min=0), uvr, has, fixed_kf, ~seen_active
+
+
+def local_bundle_adjustment(cam: PinholeCamera, m: MapState, center_kf: int, inv_sigma2_table,
+                            window: int = 8, iters: int = 8, n_levels: int = 8,
+                            max_edges: int = 65536, active_max: int = 32) -> MapState:
+    """Local BA over the centre keyframe's covisibility neighbourhood, the
+    optimized poses and points written back and outlier observations
+    detached (chi2 > 5.991 mono / 7.815 stereo).
+
+    The adjustable keyframes are ranked (centre first, then by points shared
+    with it) into `active_max` slots for the dense reduced-camera solve; the
+    rest become fixed. With `max_edges` below K*N the solver runs on a
+    compacted block of the edges with an adjustable end, edges of active
+    keyframes first on overflow (a stable sort keeps slot order)."""
+    K, N = m.kf_obs_pt.shape
+    dev = m.kf_R.device
+    kfi, pti, uvr, has, fixed_kf, fixed_pt = build_local_ba_problem(m, center_kf, window)
+    adjustable = m.kf_valid & ~fixed_kf
+    score = torch.where(adjustable, shared_point_counts(m, center_kf) + 1.0, -1.0)
+    score = torch.where(torch.arange(K, device=dev) == center_kf, float("inf"), score)
+    vals, idx = _stable_topk(score, min(active_max, K))
+    active_idx = torch.where(vals > 0, idx, -1)
+    in_active = torch.zeros(K + 1, dtype=torch.bool, device=dev).index_fill(
+        0, torch.where(active_idx >= 0, active_idx, K), True)[:K]
+    fixed_kf = fixed_kf | (adjustable & ~in_active)
+
+    kfl, ptl = kfi.long(), pti.long()
+    inv_s2 = inv_sigma2_table[torch.clamp(m.kf_kp_level.reshape(-1), 0, inv_sigma2_table.shape[0] - 1).long()]
+    valid_e = has & m.pt_valid[ptl]
+    E = K * N
+    cap = min(max_edges, E) if max_edges else E
+    obs = m.kf_obs_pt.reshape(-1)
+    if cap < E:
+        useful = valid_e & (~fixed_kf[kfl] | ~fixed_pt[ptl])
+        prio = useful.to(torch.int32) * (1 + (~fixed_kf[kfl]).to(torch.int32))
+        sel = torch.argsort(-prio, stable=True)[:cap]
+        prob = BAProblem(R=m.kf_R, t=m.kf_t, X=m.pt_xyz, kf=kfi[sel], pt=pti[sel], uvr=uvr[sel],
+                         inv_sigma2=inv_s2[sel], valid=valid_e[sel] & (prio[sel] > 0),
+                         fixed_kf=fixed_kf, fixed_pt=fixed_pt)
+    else:
+        sel = None
+        prob = BAProblem(R=m.kf_R, t=m.kf_t, X=m.pt_xyz, kf=kfi, pt=pti, uvr=uvr,
+                         inv_sigma2=inv_s2, valid=valid_e, fixed_kf=fixed_kf, fixed_pt=fixed_pt)
+    R, t, X, chi2 = dense_schur_bundle_adjustment(cam, prob, active_idx, iters=iters, use_huber=True)
+    th = torch.where(prob.uvr[:, 2] >= 0, 7.815, 5.991)
+    bad = prob.valid & (chi2 > th)
+    if sel is None:
+        obs = torch.where(bad, -1, obs)
+    else:
+        obs = obs.index_put((sel,), torch.where(bad, -1, obs[sel]))
+    return m._replace(kf_R=R, kf_t=t, pt_xyz=X, kf_obs_pt=obs.reshape(K, N))
+
+
+def _observation_counts(m: MapState) -> torch.Tensor:
+    """(P + 1,) float32 keyframe observations of each point (slot P: none)."""
+    P = m.capacity_pt
+    has = (m.kf_obs_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    flat = torch.where(has, m.kf_obs_pt, P).reshape(-1).long()
+    return torch.zeros(P + 1, dtype=torch.float32, device=flat.device).index_add(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
+
+
+def cull_map_points(m: MapState, current_kf: int, min_kf_obs: float = 3.0) -> MapState:
+    """MapPointCulling: invalidate points whose found/visible ratio is below
+    0.25 (after 4 sightings), or that two keyframes after creation are seen
+    by fewer than `min_kf_obs` keyframes; their observations are detached."""
+    ratio = m.pt_found / torch.clamp(m.pt_visible, min=1.0)
+    cnt = _observation_counts(m)[:m.capacity_pt]
+    age = current_kf - m.pt_first_kf
+    bad = m.pt_valid & (((ratio < 0.25) & (m.pt_visible >= 4.0)) | ((age >= 2) & (cnt < min_kf_obs)))
+    obs = m.kf_obs_pt
+    obs_bad = bad[obs.clamp(min=0).long()] & (obs >= 0)
+    return m._replace(pt_valid=m.pt_valid & ~bad, kf_obs_pt=torch.where(obs_bad, -1, obs))
+
+
+def _fuse_pair_match(cam: PinholeCamera, m: MapState, cnt, src, dst, inv_sigma2_table,
+                     scale_factor: float = 1.2, n_levels: int = 8):
+    """The match phase of SearchInNeighbors / ORBmatcher::Fuse for directed
+    keyframe pairs src -> dst ((C,) tensors, C pairs at once): project src's
+    map points into dst and match them against dst's keypoints. A pure read;
+    mapping_front applies the merges and additions of all pairs at once.
+
+    cnt (P,) holds each point's observation count (merge arbitration).
+    Returns (tgt_slot, add, merge, winner, loser), each (C, N)."""
+    src, dst = src.long(), dst.long()
+    obs_a = m.kf_obs_pt[src]
+    p_src = obs_a.clamp(min=0)
+    pl = p_src.long()
+    has_a = (obs_a >= 0) & m.kf_kp_valid[src] & m.pt_valid[pl]
+    pts = m.pt_xyz[pl]
+    R, t = m.kf_R[dst], m.kf_t[dst]
+    p_cam = se3_apply(R, t[:, None], pts)
+    uv = project(cam, p_cam)
+    C = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    dist = torch.linalg.norm(pts - C[:, None], dim=-1)
+    proj_ok = has_a & (p_cam[..., 2] > 0.05) & _in_image(cam, uv)
+    pred_lvl = predict_scale(dist, m.pt_max_dist[pl], scale_factor, n_levels)
+    idx, _, ok = search_by_projection_points(
+        uv, m.pt_desc[pl], proj_ok, 3.0 * sf_pow(scale_factor, pred_lvl),
+        torch.clamp(pred_lvl - 1, min=0), pred_lvl + 1,
+        m.kf_kp_xy[dst], m.kf_kp_desc[dst], m.kf_kp_level[dst], m.kf_kp_angle[dst],
+        m.kf_kp_valid[dst], max_dist=TH_LOW, nn_ratio=0.0,
+    )
+    q = torch.gather(m.kf_obs_pt[dst], 1, idx)  # the point already at the matched slot
+    ok = ok & (q != p_src)
+    qs = q.clamp(min=0)
+    merge = ok & (q >= 0) & m.pt_valid[qs.long()]
+    add = ok & ~merge
+    # Strict (count, index) arbitration keeps the merge graph acyclic: the
+    # more observed point wins (MapPoint::Replace), the lower index on a tie.
+    c_src, c_q = cnt[pl], cnt[qs.long()]
+    keep_src = (c_src > c_q) | ((c_src == c_q) & (p_src <= qs))
+    return idx, add, merge, torch.where(keep_src, p_src, qs), torch.where(keep_src, qs, p_src)
+
+
+def cull_keyframes(m: MapState, current_kf: int, protect: torch.Tensor):
+    """KeyFrameCulling: invalidate unprotected keyframes whose observed
+    points are >= 90% redundant (each seen by at least 3 other keyframes).
+    A culled keyframe keeps its pose, detaches its observations and records
+    its most covisible surviving keyframe (else the nearest surviving slot)
+    as parent, with the relative pose T_k T_parent^-1. Returns (map, culled)."""
+    K, N = m.kf_obs_pt.shape
+    P = m.capacity_pt
+    dev = m.kf_R.device
+    has = (m.kf_obs_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    cnt = _observation_counts(m)
+    obs_cnt = cnt[torch.clamp(m.kf_obs_pt, max=P).long()]
+    redundant = has & (obs_cnt >= 4.0)  # itself and 3 others
+    n_obs = has.sum(dim=1).to(torch.float32)
+    n_red = redundant.sum(dim=1).to(torch.float32)
+    cull = m.kf_valid & ~protect & (n_obs > 0) & (n_red >= 0.9 * n_obs)
+    survive = m.kf_valid & ~cull
+
+    shared = torch.where(survive[None, :], covisibility_weights(m), -1.0)
+    shared = shared - torch.diag(torch.diag(shared))
+    idx = torch.arange(K, device=dev)
+    nearness = -torch.abs(idx[:, None] - idx[None, :]).to(torch.float32)
+    nearness = torch.where(survive[None, :] & (idx[None, :] != idx[:, None]), nearness, float("-inf"))
+    parent = torch.where(shared.max(dim=1).values > 0, torch.argmax(shared, dim=1),
+                         torch.argmax(nearness, dim=1))
+    rel_R = m.kf_R @ m.kf_R[parent].transpose(-1, -2)
+    rel_t = m.kf_t - torch.einsum("kij,kj->ki", rel_R, m.kf_t[parent])
+    return m._replace(
+        kf_valid=survive,
+        kf_obs_pt=torch.where(cull[:, None], -1, m.kf_obs_pt),
+        kf_parent=torch.where(cull, parent.to(torch.int32), m.kf_parent),
+        kf_rel_R=torch.where(cull[:, None, None], rel_R, m.kf_rel_R),
+        kf_rel_t=torch.where(cull[:, None], rel_t, m.kf_rel_t),
+    ), cull
+
+
+def _top_covis(rows: torch.Tensor, fids: torch.Tensor, anchors: torch.Tensor, n: int) -> torch.Tensor:
+    """For each anchor keyframe ((Q,) tensor) with its (Q, K) covisibility
+    row, the ids of its n most covisible keyframes (ties to the lower id),
+    -1 where the weight is 0; with no covisible keyframe at all, its n
+    newest by frame id. (Q, n) int64."""
+    a = anchors.long()[:, None]
+    tv, ti = _stable_topk(rows.scatter(1, a, 0.0), n)
+    covis = torch.where(tv > 0, ti, -1)
+    rv, ri = _stable_topk(fids.expand(a.shape[0], -1).scatter(1, a, -1), n)
+    recent = torch.where(rv >= 0, ri, -1)
+    return torch.where((tv > 0).any(dim=1, keepdim=True), covis, recent)
+
+
+def best_covisible_ids(m: MapState, anchor: int, n: int) -> torch.Tensor:
+    """The ids of keyframe `anchor`'s n most covisible keyframes, -1 padded
+    (KeyFrame::GetBestCovisibilityKeyFrames); the n newest by frame id when
+    it has no covisible keyframe. (n,) int64."""
+    n = min(n, m.kf_obs_pt.shape[0])
+    shared = torch.where(m.kf_valid, shared_point_counts(m, anchor), 0.0)
+    fids = torch.where(m.kf_valid, m.kf_frame_id, -1)
+    anchors = torch.full((1,), anchor, dtype=torch.int64, device=shared.device)
+    return _top_covis(shared[None], fids, anchors, n)[0]
+
+
+def dedupe_fuse_targets(ext: torch.Tensor, K: int, nn_fuse: int) -> torch.Tensor:
+    """Dedupe the two-hop fuse-target list ([direct targets (nn_fuse) | hop
+    neighbours], ids in [0, K) or -1) and compact it, direct targets first,
+    into at most 2 * nn_fuse entries (the JAX package's static cost cap),
+    -1 padded."""
+    L = ext.shape[0]
+    dev = ext.device
+    park = torch.where(ext >= 0, ext, K).long()  # -1 parks at K, past every id
+    prio = torch.where(ext >= 0, 1, 0)
+    prio = torch.where(torch.arange(L, device=dev) < nn_fuse, 2 * prio, prio)
+    rank = torch.arange(L, 0, -1, dtype=torch.int64, device=dev)  # earlier is larger
+    first = torch.zeros(K + 1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, park, rank, reduce="amax", include_self=True)
+    prio = torch.where(first[park] == rank, prio, 0)
+    order = torch.argsort(-prio, stable=True)[: 2 * nn_fuse]
+    return torch.where(prio[order] > 0, ext[order], -1)
+
+
+def _mark_max(mask: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """mask.at[idx].max(val) for a bool mask."""
+    return mask.to(torch.uint8).scatter_reduce(
+        0, idx.long(), val.to(torch.uint8), reduce="amax", include_self=True).bool()
+
+
+_PAIRS_PER_CHUNK = 4  # keyframe pairs matched at once: (4, N, N) planes
+
+
+def mapping_front(cam: PinholeCamera, m: MapState, ki: int, inv_sigma2_table, min_kf_obs: float, *,
+                  scale_factor: float, n_levels: int, nn_tri: int, nn_fuse: int, fuse_hop: int,
+                  window: int) -> MapState:
+    """The LocalMapping epoch for new keyframe `ki`, in LocalMapping::Run's
+    order:
+
+      1. triangulation against the `nn_tri` most covisible keyframes
+         (CreateNewMapPoints), 4 pairs at a time; each keypoint takes
+         the first good neighbour in list order, as a new point there removes
+         the keypoint from the later neighbours' search;
+      2. recent-point culling (MapPointCulling);
+      3. fusion in both directions against the deduped two-hop neighbour set
+         (SearchInNeighbors): every pair matched against one state, then one
+         merge map (the last pair wins a conflict; the (count, index) order
+         keeps chains acyclic, collapsed by pointer jumping) and one
+         scatter of the added observations;
+      4. the representative descriptors of the new keyframe's points;
+      5. redundant-keyframe culling (KeyFrameCulling), protecting keyframes
+         0 and 1, `ki`, and the `window` newest and most covisible.
+
+    Both neighbour lists come from the covisibility at the epoch's start,
+    their ids first and -1 after; their lengths are read to the host at once
+    (one device->host read), so that only the pairs that exist are matched:
+    the JAX package runs every slot of its static lists and disables the
+    empty ones, which changes nothing else.
+    """
+    K, N = m.kf_obs_pt.shape
+    P = m.capacity_pt
+    dev = m.kf_R.device
+    cols = torch.arange(N, device=dev)
+
+    W = covisibility_weights(m)
+    W = torch.where(m.kf_valid[None, :] & m.kf_valid[:, None], W, 0.0)
+    fids = torch.where(m.kf_valid, m.kf_frame_id, -1)
+    ki_t = torch.full((1,), ki, dtype=torch.int64, device=dev)
+
+    def top_covis(anchors, n):
+        return _top_covis(W[anchors.long()], fids, anchors, n)
+
+    neighbors = top_covis(ki_t, min(nn_tri, K))[0]
+    targets = top_covis(ki_t, min(nn_fuse, K))[0]
+    if fuse_hop > 0:
+        hops = torch.where(targets[:, None] >= 0, top_covis(targets.clamp(min=0), min(fuse_hop, K)), -1)
+        ext = torch.cat([targets, hops.reshape(-1)])
+    else:
+        ext = targets
+    ext = torch.where(ext == ki, -1, ext)
+    if fuse_hop > 0:
+        ext = dedupe_fuse_targets(ext, K, nn_fuse)
+    n_nb, n_ext = (int(n) for n in torch.stack([(neighbors >= 0).sum(), (ext >= 0).sum()]).cpu())
+    nbs, ext = neighbors[:n_nb], ext[:n_ext]
+
+    # -- 1. triangulation ---------------------------------------------------
+    if n_nb:
+        c = _PAIRS_PER_CHUNK
+        outs = [triangulate_new_points(cam, m, ki, nbs[i:i + c], inv_sigma2_table,
+                                       scale_factor=scale_factor, n_levels=n_levels)
+                for i in range(0, n_nb, c)]
+        xyz, nvec, mind, maxd, slot_old, good = (torch.cat([o[i] for o in outs])
+                                                  for i in (0, 2, 3, 4, 6, 7))
+        choice = good.to(torch.uint8).argmax(dim=0)  # the first good neighbour
+        sel = good.any(dim=0)
+        m, slots = insert_points(m, xyz[choice, cols], m.kf_kp_desc[ki], ki, sel,
+                                 nvec[choice, cols], mind[choice, cols], maxd[choice, cols])
+        created = sel & (slots >= 0)
+        flat_obs = torch.cat([m.kf_obs_pt.reshape(-1), m.kf_obs_pt.new_zeros(1)])
+        idx_new = torch.where(created, ki * N + cols, K * N)
+        idx_old = torch.where(created, nbs[choice] * N + slot_old[choice, cols], K * N)
+        val = torch.where(created, slots, 0)
+        flat_obs = scatter_last(flat_obs, idx_new, val)
+        flat_obs = scatter_last(flat_obs, idx_old, val)
+        m = m._replace(kf_obs_pt=flat_obs[: K * N].reshape(K, N))
+
+    # -- 2. recent-point culling ---------------------------------------------
+    m = cull_map_points(m, ki, min_kf_obs)
+
+    # -- 3. two-hop fusion in both directions ------------------------------
+    if n_ext:
+        ki_col = torch.full_like(ext, ki)
+        pairs = torch.cat([torch.stack([ki_col, ext], 1), torch.stack([ext, ki_col], 1)])
+        cnt = _observation_counts(m)[:P]
+        c = _PAIRS_PER_CHUNK
+        fz = [_fuse_pair_match(cam, m, cnt, pairs[i:i + c, 0], pairs[i:i + c, 1],
+                               inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels)
+              for i in range(0, 2 * n_ext, c)]
+        tgt_slot, add, merge, winner, loser = (torch.cat(a) for a in zip(*fz))
+
+        merge_f = merge.reshape(-1)
+        repl = scatter_last(torch.arange(P + 1, device=dev), torch.where(merge_f, loser.reshape(-1), P),
+                            torch.where(merge_f, winner.reshape(-1), P).long())
+        for _ in range(3):  # pointer jumping: chains up to depth 8
+            repl = repl[repl]
+        repl = repl[:P]
+        obs = m.kf_obs_pt
+        obs = torch.where(obs >= 0, repl[obs.clamp(min=0).long()].to(obs.dtype), obs)
+        pt_valid = m.pt_valid & (repl == torch.arange(P, device=dev))
+
+        # Observations for the matched free keypoints of every pair at once.
+        flat_idx = torch.where(add, pairs[:, 1:] * N + tgt_slot, K * N).reshape(-1)
+        src_obs = m.kf_obs_pt[pairs[:, 0]]
+        val = repl[src_obs.clamp(min=0).long()].to(obs.dtype).reshape(-1)
+        obs_flat = scatter_last(torch.cat([obs.reshape(-1), obs.new_zeros(1)]), flat_idx, val)
+        m = m._replace(kf_obs_pt=obs_flat[: K * N].reshape(K, N), pt_valid=pt_valid)
+
+    # -- 4. descriptors of the new keyframe's points -------------------------
+    cur = m.kf_obs_pt[ki]
+    touched = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill(
+        0, torch.where(cur >= 0, cur, P).long(), True)[:P]
+    m = compute_point_descriptors(m, touched)
+
+    # -- 5. redundant-keyframe culling ---------------------------------------
+    w = min(window, K)
+    idx = torch.arange(K, device=dev)
+    protect = (idx == 0) | (idx == 1) | (idx == ki)
+    rv, ri = _stable_topk(torch.where(m.kf_valid, m.kf_frame_id, -1), w)
+    protect = _mark_max(protect, torch.where(rv >= 0, ri, 0), rv >= 0)
+    cov = best_covisible_ids(m, ki, w)
+    protect = _mark_max(protect, cov.clamp(min=0), cov >= 0)
+    m, _ = cull_keyframes(m, ki, protect)
+    return m

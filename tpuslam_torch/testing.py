@@ -1,7 +1,8 @@
 """Synthetic scenes without jax: a numpy copy of tests/synthetic.py's
 make_texture, StepWallScene and orbit_trajectory (blur and rotations from
-this package), the inputs of a coherent tracking step, and a tracking
-session over a real MapState (build_depth_session).
+this package), the inputs of a coherent tracking step, a tracking session
+over a real MapState (build_depth_session), and a monocular System session
+over rendered frames with its ATE (mono_session, trajectory_ate).
 
 A coherent step: the keypoints of a frame rendered at pose A, back-projected
 through A's depth image, are both the last frame's points and the first
@@ -32,6 +33,7 @@ from tpuslam_torch.mapstate.core import (
 from tpuslam_torch.ops.image import gaussian_blur
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb, extract_orb_batched
 from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, fused_track_frame_image
+from tpuslam_torch.pipeline.tracker import pad_feats
 
 
 def make_texture(rng, h=600, w=800):
@@ -253,21 +255,6 @@ def orb_frame_features(f, depth=None) -> FrameFeatures:
     )
 
 
-def pad_feats(feats: FrameFeatures, cap: int) -> FrameFeatures:
-    """Pad a frame's keypoint arrays to the keyframe capacity `cap`
-    (Tracker._pad_feats): invalid, mono, no depth."""
-    pad = cap - feats.xy.shape[0]
-    if pad == 0:
-        return feats
-
-    def p(a, fill=0):
-        return torch.cat([a, torch.full((pad, *a.shape[1:]), fill, dtype=a.dtype, device=a.device)])
-
-    return FrameFeatures(xy=p(feats.xy), level=p(feats.level), angle=p(feats.angle),
-                         desc=p(feats.desc), valid=p(feats.valid, False),
-                         u_right=p(feats.u_right, -1.0), depth=p(feats.depth))
-
-
 def depth_at(depth_img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """The rendered depth at each keypoint's nearest pixel (0 = none)."""
     H, W = depth_img.shape
@@ -407,3 +394,73 @@ def build_depth_session(scene: StepWallScene, cam: PinholeCamera, cfg: ORBConfig
         if on_frame is not None:
             on_frame(i, rec)
     return DepthSession(st, frames, snapshots, n_kf, scale_factors, inv_sigma2)
+
+
+def render_frames(scene: StepWallScene, cam: PinholeCamera, poses, device="cpu") -> list:
+    """The (H, W) float32 images of `scene` at `poses` (world->camera), on
+    `device`."""
+    return [scene.render(cam, R, t, device=device).to(torch.float32) for R, t in poses]
+
+
+def mono_session(system, frames, on_frame=None) -> list:
+    """Feed `system.track_monocular` the images `frames`, timestamps i / 30
+    s. Returns one (T_cw or None, ms) per frame: the call's wall time, the
+    card synchronized before and after it. on_frame(i, out) runs after each
+    frame."""
+    import time
+
+    def sync():
+        if system.tracker.device.type == "cuda":
+            torch.cuda.synchronize(system.tracker.device)
+
+    res = []
+    for i, img in enumerate(frames):
+        sync()
+        t0 = time.perf_counter()
+        out = system.track_monocular(img, i / 30.0)
+        sync()
+        res.append((out, (time.perf_counter() - t0) * 1e3))
+        if on_frame is not None:
+            on_frame(i, out)
+    return res
+
+
+def keep_mapping_inputs(tracker, jobs=None) -> dict:
+    """Wrap tracker._mapping_compute so that the input (map, keyframe slot)
+    of its calls is kept in the returned dict, keyed by the call's index
+    from 0: every call's, or those in `jobs` (each map kept holds the card
+    memory of a whole MapState)."""
+    kept = {}
+    compute = tracker._mapping_compute
+    calls = [0]
+
+    def wrapped(m, ki):
+        if jobs is None or calls[0] in jobs:
+            kept[calls[0]] = (m, ki)
+        calls[0] += 1
+        return compute(m, ki)
+
+    tracker._mapping_compute = wrapped
+    return kept
+
+
+def trajectory_ate(trajectory, poses):
+    """The ATE of an exported trajectory ((frame_id, R, t, lost) tuples)
+    against the ground-truth `poses`: camera centres of the tracked frames,
+    Sim3-aligned (horn_sim3, the monocular scale is free). Returns (ATE
+    RMSE, number of frames, (s, R, t) of the alignment)."""
+    from tpuslam_torch.sfm.sim3solver import horn_sim3
+
+    est, gt = [], []
+    for frame_id, R, t, lost in trajectory:
+        if lost:
+            continue
+        est.append(-R.T @ t)
+        Rg, tg = poses[frame_id]
+        gt.append(-np.asarray(Rg).T @ np.asarray(tg))
+    est = np.asarray(est, np.float32)
+    gt = np.asarray(gt, np.float32)
+    s, R, t = horn_sim3(torch.from_numpy(est), torch.from_numpy(gt), torch.ones(len(est)))
+    aligned = float(s) * est @ R.numpy().T + t.numpy()
+    ate = float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
+    return ate, len(est), (float(s), R.numpy(), t.numpy())
