@@ -45,8 +45,33 @@ Phases, any failure exits non-zero:
      peak memory allocated (the session, one frame, one keyframe job and
      its stages, the relocalization) and a profile of the keyframe job and
      of the relocalization.
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+  stereo kernels: FAST+NMS over the 8 levels of a KITTI-sized (2, 376,
+     1241) stereo batch in one launch and the gather on its 1257-byte-wide
+     atlas at the describe and at the SAD windows, each torch.equal to its
+     plain version, then timed as in phase 5;
+  stereo SLAM: System.track_stereo at KITTI00-02.yaml's operating point
+     (1241x376, 2000 features, ThDepth 35, kf_max_frames 10) at the default
+     capacities over 60 rectified pairs of a 4x-scale StepWallScene, the
+     right image rendered 0.537 m along the camera's x axis: initialized on
+     the first frame, OK at the end, >= 95% tracked, the span within 5% and
+     the rigid ATE below 3% of it, both kernels on every frame. Prints ms per
+     frame by kind (the keyframe frames split into the stereo front end,
+     mapping_front, the local-BA chunks and the rest), the front end alone
+     (it must make no device->host read), reads by frame kind, peak memory,
+     one frame's front end on the CPU against the card, then localization
+     mode over 20 frames past the mapped region (the map must not change,
+     >= 75% tracked; whether VO mode engaged);
+  RGB-D SLAM: System.track_rgbd at TUM1.yaml's operating point (640x480,
+     1000 features, ThDepth 40, depth as uint16 at 5000 per metre; zero
+     distortion: the renderer is a pinhole) over 60 frames of a StepWallScene
+     at half depth, so keypoints lie on both sides of th_depth (3.09 m):
+     the same gates and prints;
+  MultiTracker: track_stereo over 2 KITTI-sized streams for 12 frames, one
+     FAST+NMS launch per batched extraction of the 4 images, every frame of
+     every stream tracked within the stereo gates.
+Each phase prints its wall time. The line before the last is
+{"kernels": [...]} (the launches of every phase's main-path run, and the
+stereo shapes' times); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -68,24 +93,41 @@ from tpuslam_torch.convert import array_to_tensor, map_to_numpy, map_to_torch
 from tpuslam_torch.geometry.camera import PinholeCamera
 from tpuslam_torch.mapstate.core import FrameFeatures, update_point_normals
 from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain, fast_nms_pyramid, fast_response
-from tpuslam_torch.ops.image import build_pyramid
-from tpuslam_torch.ops.orb import ORBConfig, detect_batched, extract_orb_batched
+from tpuslam_torch.ops.image import build_pyramid, pyramid_shapes
+from tpuslam_torch.ops.orb import (
+    ORBConfig,
+    ORBFeatures,
+    detect_batched,
+    extract_orb_batched,
+    extract_orb_batched_atlas,
+)
 from tpuslam_torch.ops.patches import PSIZE, _gather_patches_cuda, gather_patches, gather_patches_plain
+from tpuslam_torch.ops.stereo import (
+    _sad_refine_atlas,
+    level_tables,
+    row_band_match,
+    sad_windows,
+    stereo_match_atlas,
+)
 from tpuslam_torch.pipeline import steps
+from tpuslam_torch.pipeline.multi import MultiTracker
 from tpuslam_torch.pipeline.steps import fused_track_frame_image, local_keyframe_mask
-from tpuslam_torch.pipeline.system import System
+from tpuslam_torch.pipeline.system import SensorType, System
 from tpuslam_torch.pipeline.track_step import track_step_batched
-from tpuslam_torch.pipeline.tracker import Tracker, TrackingState
+from tpuslam_torch.pipeline.tracker import Tracker, TrackerConfig, TrackingState
 from tpuslam_torch.testing import (
     TRACK_STEP_ARGS,
     StepWallScene,
     build_depth_session,
     coherent_track_inputs,
+    depth_session,
     keep_mapping_inputs,
     mono_session,
     orbit_trajectory,
     pose_errors,
     render_frames,
+    render_rgbd_frames,
+    render_stereo_frames,
     trajectory_ate,
 )
 
@@ -121,6 +163,38 @@ MONO_FRAMES, MONO_INIT_BY, MONO_TRACKED = 100, 10, 0.95
 # is 3%.
 MONO_ATE_SHARE = 0.03
 MONO_SNAP_JOB, MONO_RELOC_FRAME = 10, 50
+# Stereo SLAM at KITTI00-02.yaml's operating point (Examples/Stereo of the
+# reference): its camera and ORBextractor block (2000 features; scale 1.2,
+# 8 levels, FAST 20/7 are ORBConfig's defaults), ThDepth 35, and 10 frames
+# between forced keyframes (its 10 fps, as examples/stereo_kitti.py sets
+# kf_max_frames). RGB-D at TUM1.yaml's (Examples/RGB-D): ThDepth 40 and the
+# depth image at 5000 per metre. The synthetic renderer is a pinhole, so the
+# distortion is zero. Both at the tracker's default capacities.
+KITTI_CAM = PinholeCamera(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
+                          width=1241, height=376)
+KITTI_ORB = ORBConfig(n_features=2000)
+STEREO_TRACKER = dict(th_depth_factor=35.0, kf_max_frames=10, enable_loop_closing=False)
+TUM_CAM = PinholeCamera(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989, bf=40.0,
+                        width=640, height=480)
+TUM_ORB = ORBConfig(n_features=1000)
+RGBD_TRACKER = dict(th_depth_factor=40.0, depth_map_factor=1.0 / 5000.0, enable_loop_closing=False)
+# Half of StepWallScene's default wall depths: 1.75 to 3.5 m around th_depth.
+RGBD_DEPTHS = tuple(d / 2 for d in (3.5, 5.0, 4.2, 6.5, 3.8, 5.8, 4.6, 7.0))
+# The stereo scene: StepWallScene at 4x scale (walls 14 to 28 m away, bands
+# 4.8 m wide, texture at 10 px/m), so th_depth (35 x 0.537 = 18.8 m) splits
+# it as it splits a street, and a KITTI-like 0.4 m per frame turns the view
+# over: the close-point pressure then brings keyframes, as on KITTI.
+STEREO_SCENE = dict(depths=tuple(4 * d for d in (3.5, 5.0, 4.2, 6.5, 3.8, 5.8, 4.6, 7.0)),
+                    band=4.8, tex_scale=10.0)
+DEPTH_FRAMES = 60
+STEREO_POSES = dict(step=0.4, yaw_rate=0.002, x0=-16.0)
+RGBD_POSES = dict(step=0.04, yaw_rate=0.002, x0=-1.2)
+# tests/test_integration_stereo.py's gates: >= 95% tracked, the span within
+# 5%; the rigid ATE below 3% of the span.
+DEPTH_TRACKED, DEPTH_SPAN_TOL, DEPTH_ATE_SHARE = 0.95, 0.05, 0.03
+LOC_FRAMES, LOC_TRACKED = 20, 0.75  # localization mode past the mapped region
+MULTI_B, MULTI_FRAMES = 2, 12
+MULTI_POSES = [dict(step=0.4, yaw_rate=0.002, x0=-16.0), dict(step=0.4, yaw_rate=-0.002, x0=-10.0)]
 INT_FIELDS = [steps.FUSED_ACCEPT, steps.FUSED_INITIAL_OK, steps.FUSED_USED_MM,
               steps.FUSED_N_TRACKED, *range(steps.FUSED_GATES, steps.FUSED_GATES + 4),
               steps.FUSED_NM]
@@ -523,6 +597,32 @@ def _ms(xs) -> str:
     return f"{statistics.median(xs):.3f} ms (n={len(xs)}, min {min(xs):.3f}, max {max(xs):.3f})" if xs else "none"
 
 
+def session_recorder(tr, rec: list):
+    """An on_frame callback that appends the tracker's counters, the
+    kernels' launch counts and the state after each frame to `rec`."""
+    def on_frame(i, out):
+        rec.append(dict(counters=dict(tr.metrics.counters), state=tr.state.name,
+                        launches={"fast_nms": fast_nms.launches,
+                                  "gather_patches": gather_patches.launches}))
+    return on_frame
+
+
+def frame_kinds(rec: list, counters0=None) -> list:
+    """Each frame's kind (keyframe, motion model, reference keyframe or
+    initialization), kernel launches and state, from the steps of the
+    per-frame records (session_recorder's, launches counted from 0, the
+    counters from counters0)."""
+    kinds, prev = [], {"launches": {}, "counters": counters0 or {}}
+    for r in rec:
+        d = {k: r["counters"].get(k, 0) - prev["counters"].get(k, 0) for k in r["counters"]}
+        kind = ("keyframe" if d.get("frames.keyframe") else "motion model" if d.get("frames.motion_model")
+                else "reference keyframe" if d.get("frames.reference_kf") else "initialization")
+        kinds.append(dict(kind=kind, launches={k: r["launches"][k] - prev["launches"].get(k, 0)
+                                               for k in r["launches"]}, state=r["state"]))
+        prev = r
+    return kinds
+
+
 def phase_mono(scene: StepWallScene, smi: str) -> dict:
     """Mono SLAM through the port's System at the default capacities (see
     the module docstring). Returns the kernels' launches in the session."""
@@ -537,15 +637,13 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     fast_nms.launches = 0
     gather_patches.launches = 0
     rec, peaks = [], {}
+    record = session_recorder(tr, rec)
 
     def on_frame(i, out):
         if "init" not in peaks and tr.state == TrackingState.OK:
             peaks["init"] = torch.cuda.max_memory_allocated()  # up to the initial global BA
             torch.cuda.reset_peak_memory_stats()
-        c = dict(tr.metrics.counters)
-        rec.append(dict(counters=c, launches={"fast_nms": fast_nms.launches,
-                                              "gather_patches": gather_patches.launches},
-                        state=tr.state.name))
+        record(i, out)
 
     t0 = time.perf_counter()
     res = mono_session(system, frames[:MONO_FRAMES], on_frame=on_frame)
@@ -553,15 +651,7 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     launches = dict(rec[-1]["launches"])
     peak = torch.cuda.max_memory_allocated()  # after initialization
 
-    # Each frame's kind from the counters' steps.
-    kinds, prev = [], {"launches": {"fast_nms": 0, "gather_patches": 0}, "counters": {}}
-    for r in rec:
-        d = {k: r["counters"].get(k, 0) - prev["counters"].get(k, 0) for k in r["counters"]}
-        kind = ("keyframe" if d.get("frames.keyframe") else "motion model" if d.get("frames.motion_model")
-                else "reference keyframe" if d.get("frames.reference_kf") else "initialization")
-        kinds.append(dict(kind=kind, launches={k: r["launches"][k] - prev["launches"][k] for k in launches},
-                          state=r["state"]))
-        prev = r
+    kinds = frame_kinds(rec)
     ok_at = [i for i, r in enumerate(rec) if r["state"] == "OK"]
     init = ok_at[0] if ok_at else None
     ms = [m for _, m in res]
@@ -701,6 +791,358 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     return launches
 
 
+def phase_stereo_kernels(scene: StepWallScene, smi: str) -> dict:
+    """Both kernels at the stereo front end's shapes, each against its plain
+    version (torch.equal), then timed as kernel_times does: FAST+NMS over
+    the 8 levels of a KITTI-sized (2, 376, 1241) batch in one launch, and
+    the gather on that batch's 1257-byte-wide atlas at the describe windows
+    and at the SAD windows of the stereo match."""
+    (L, R), = render_stereo_frames(scene, KITTI_CAM, orbit_trajectory(1, **STEREO_POSES), device="cuda")
+    imgs = torch.stack([L, R])
+    cfg, th = KITTI_ORB, KITTI_ORB.min_th_fast
+    err = {"fast_nms": 0.0, "gather_patches": 0.0}
+    levels = build_pyramid(imgs, cfg.n_levels, cfg.scale_factor)
+    before = fast_nms.launches
+    got = fast_nms_pyramid(levels, th)
+    torch.cuda.synchronize()
+    if fast_nms.launches != before + 1:
+        raise AssertionError("stereo shapes: fast_nms_pyramid did not launch once")
+    for x, g in zip(levels, got):
+        ref = fast_nms_plain(x, th)
+        if not torch.equal(g, ref):
+            raise AssertionError(f"stereo shapes: fast_nms differs from its plain version at {tuple(x.shape)}")
+        err["fast_nms"] = max(err["fast_nms"], float((g - ref).abs().max()))
+    log(f"stereo shapes: fast_nms over {[tuple(x.shape) for x in levels]} in one launch: every level equal")
+
+    *_, atlas, corner = detect_batched(imgs, cfg)
+    fb, _ = extract_orb_batched_atlas(imgs, cfg)
+    fL, fR = (ORBFeatures(*(x[b] for x in fb)) for b in (0, 1))
+    tabs = level_tables(tuple(pyramid_shapes(KITTI_CAM.height, KITTI_CAM.width, cfg.n_levels,
+                                             cfg.scale_factor)), cfg.scale_factor, atlas.device)
+    i1, matched = row_band_match(fL, fR, tabs, KITTI_CAM.fx)
+    sad_corner = sad_windows(tabs, 0, atlas.shape[0] // 2, fL.level, fL.xy[:, 0], fL.xy[:, 1],
+                             fR.xy[i1, 0])[0]
+    windows = {"describe": corner, "sad": sad_corner}
+    for name, c in windows.items():
+        g = gather_patches(atlas, c)
+        torch.cuda.synchronize()
+        ref = gather_patches_plain(atlas, c)
+        if not torch.equal(g, ref):
+            raise AssertionError(f"stereo shapes: gather_patches differs from its plain version ({name})")
+        err["gather_patches"] = max(err["gather_patches"], float((g - ref).abs().max()))
+        log(f"stereo shapes: gather_patches on the {tuple(atlas.shape)} uint8 atlas at {c.shape[0]} "
+            f"{name} windows: equal")
+
+    a32 = atlas.float()
+    ar = torch.arange(PSIZE, device=atlas.device)
+    fns = {"fast_nms": lambda: fast_nms_pyramid(levels, th),
+           "fast_nms plain": lambda: [fast_nms_plain(x, th) for x in levels]}
+    for name, c in windows.items():
+        rows = (c[:, 0].long()[:, None] + ar)[:, :, None]
+        cols = (c[:, 1].long()[:, None] + ar)[:, None, :]
+        fns[f"gather {name}"] = lambda c=c: _gather_patches_cuda(atlas, c)
+        fns[f"gather {name} plain"] = lambda c=c: gather_patches_plain(atlas, c)
+        fns[f"gather {name} library"] = lambda r=rows, k=cols: a32[r, k]
+    per_call = dict(zip(fns, cuda_ms_turns(list(fns.values()))))
+    dev = dict(zip(fns, cuda_ms_turns(list(fns.values()), ahead=True)))
+    bounds = {"fast_nms": fast_bound_ms(levels, th),
+              "gather describe": gather_bound_ms(atlas, corner),
+              "gather sad": gather_bound_ms(atlas, sad_corner)}
+    log(f"kernel times at the stereo shapes on {smi} (CUDA-event medians of {REPS}, in turns; per "
+        f"call with the host's gaps, then the device's time alone):")
+    for name, (bound, by) in bounds.items():
+        lib = (f", library a32[rows, cols] {per_call[name + ' library']:.4f} / "
+               f"{dev[name + ' library']:.4f} ms" if name + " library" in per_call else "")
+        log(f"  {name}: kernel {per_call[name]:.4f} / {dev[name]:.4f} ms, plain "
+            f"{per_call[name + ' plain']:.4f} / {dev[name + ' plain']:.4f} ms{lib}, bound {bound:.4f} ms "
+            f"({by}), {bound / dev[name]:.1%} of the bound (device time)")
+
+    # The stereo match around the gather: the SAD refinement (plain PyTorch
+    # but its gather) and the whole stereo_match_atlas, for ROADMAP B.
+    Ha = atlas.shape[0] // 2
+    shapes = tuple(pyramid_shapes(KITTI_CAM.height, KITTI_CAM.width, cfg.n_levels, cfg.scale_factor))
+    uL, vL = fL.xy[:, 0], fL.xy[:, 1]
+    match = {
+        "SAD refinement": lambda: _sad_refine_atlas(atlas, 0, Ha, tabs, fL.level, uL, vL, fR.xy[i1, 0], matched),
+        "stereo_match_atlas": lambda: stereo_match_atlas(fL, fR, atlas, 0, Ha, shapes, cfg, KITTI_CAM.fx,
+                                                         KITTI_CAM.bf),
+    }
+    m_call = dict(zip(match, cuda_ms_turns(list(match.values()))))
+    m_dev = dict(zip(match, cuda_ms_turns(list(match.values()), ahead=True)))
+    for name, fn in match.items():
+        _, n_launch, dev_us, _ = profile_call(fn)
+        log(f"  {name} at 2000 keypoints: {m_call[name]:.4f} ms per call, {m_dev[name]:.4f} ms of "
+            f"device time, {n_launch} kernel launches")
+    return dict(err=err, per_call=per_call, dev=dev, bounds=bounds, match_ms=m_call, match_dev=m_dev)
+
+
+def _centres(traj) -> dict:
+    return {fid: -np.asarray(R).T @ np.asarray(t) for fid, R, t, lost in traj if not lost}
+
+
+def _span(c: dict) -> float:
+    k = sorted(c)
+    return float(np.linalg.norm(c[k[-1]] - c[k[0]]))
+
+
+def depth_gates(name: str, traj, poses, n_frames: int) -> tuple:
+    """(failures, summary) of a depth sensor's trajectory against the
+    truth: >= DEPTH_TRACKED of the frames tracked, the span within
+    DEPTH_SPAN_TOL (depth gives true scale), the rigid ATE below
+    DEPTH_ATE_SHARE of the span."""
+    est = _centres(traj)
+    gt = _centres([(i, R, t, False) for i, (R, t) in enumerate(poses[:n_frames])])
+    ate, n, _ = trajectory_ate(traj, poses, fix_scale=True)
+    span_e, span_g = _span(est), _span(gt)
+    bad = []
+    if n < DEPTH_TRACKED * n_frames:
+        bad.append(f"tracked {n}/{n_frames}")
+    if not abs(span_e - span_g) < DEPTH_SPAN_TOL * span_g:
+        bad.append(f"span {span_e:.4f} against {span_g:.4f} m")
+    if not ate < DEPTH_ATE_SHARE * span_g:
+        bad.append(f"rigid ATE {ate:.4f} >= {DEPTH_ATE_SHARE:.0%} of {span_g:.3f} m")
+    summary = (f"{n}/{n_frames} frames tracked, span {span_e:.4f} m against {span_g:.4f} m "
+               f"({(span_e - span_g) / span_g:+.2%}), rigid ATE {ate:.4f} m ({ate / span_g:.2%} of the span)")
+    return [f"{name}: {b}" for b in bad], summary
+
+
+def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_fn) -> dict:
+    """A stereo or RGB-D session through the port's System on the card (see
+    the module docstring): its gates, ms per frame by kind, the front end
+    alone, device->host reads by frame kind, peak memory. `frames` holds
+    DEPTH_FRAMES session frames and 3 more for the read counts; front_fn(f)
+    runs the front end alone on frame f. Returns (launches in the session,
+    their medians per frame)."""
+    tr = system.tracker
+    tr.stage_sync = True  # the stage timers hold device time
+    feat_stage = f"track.{name}_features"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    rec = []
+    t0 = time.perf_counter()
+    res = depth_session(system, frames[:DEPTH_FRAMES], on_frame=session_recorder(tr, rec))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(rec[-1]["launches"])
+    kinds = frame_kinds(rec)
+    ms = [m for _, m in res]
+    m = tr.map
+    traj = tr.export_trajectory()
+    bad, summary = depth_gates(name, traj, poses, DEPTH_FRAMES)
+    for i in range(0, DEPTH_FRAMES, 10):
+        log(f"  frame {i}: {kinds[i]['state']} {kinds[i]['kind']}, {ms[i]:.1f} ms, launches {kinds[i]['launches']}")
+    log(f"{name} SLAM on {smi}: {DEPTH_FRAMES} frames in {wall:.1f} s (stage syncs on), first frame "
+        f"{kinds[0]['state']}, end state {tr.state.name}; {int(m.kf_valid.sum())} valid keyframes "
+        f"({tr._n_kf_host} inserted), {int(m.pt_valid.sum())} valid points of {m.capacity_pt}; {summary}; "
+        f"peak memory allocated {peak:.3f} GiB")
+    log(f"  launches in the session: {launches}; frames by kind: "
+        f"{ {k: sum(1 for x in kinds if x['kind'] == k) for k in set(x['kind'] for x in kinds)} }")
+    st = tr.metrics.timer.samples
+    feat = [v * 1e3 for v in st[feat_stage]]
+    kf_idx = [i for i, x in enumerate(kinds) if x["kind"] == "keyframe"]
+    front, ba1, ba2 = ([v * 1e3 for v in st.get(k, [])] for k in ("map.front", "map.local_ba1", "map.local_ba2"))
+    rest = [ms[i] - feat[i] - f - b1 - b2 for i, f, b1, b2 in zip(kf_idx, front, ba1, ba2)]
+    log(f"{name} SLAM times on {smi} (medians over the session's frames):")
+    for kind in ("initialization", "motion model", "reference keyframe"):
+        idx = [i for i, x in enumerate(kinds) if x["kind"] == kind]
+        log(f"  {kind} frame: {_ms([ms[i] for i in idx])}; of which the {name} front end "
+            f"{_ms([feat[i] for i in idx])}")
+    log(f"  keyframe frame: {_ms([ms[i] for i in kf_idx])}; of which the {name} front end "
+        f"{_ms([feat[i] for i in kf_idx])}, mapping_front {_ms(front)}, local BA chunk 1 {_ms(ba1)}, "
+        f"chunk 2 {_ms(ba2)}, the rest (tracking step, insertion, densification, normals) {_ms(rest)}")
+    if kinds[0]["state"] != "OK":
+        bad.append(f"{name}: not initialized on the first frame")
+    if tr.state != TrackingState.OK:
+        bad.append(f"{name}: ended in {tr.state.name}")
+    if any(x["launches"][k] < 1 for x in kinds for k in launches):
+        bad.append(f"{name}: a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if bad:
+        raise AssertionError(f"{name} SLAM: {bad}")
+
+    # The front end alone: device time and reads.
+    tr.stage_sync = False
+    f0 = frames[DEPTH_FRAMES - 1]
+    front_ms = cuda_ms(lambda: front_fn(f0))
+    _, front_sites = count_syncs(lambda: front_fn(f0))
+    log(f"  the {name} front end alone: {front_ms:.3f} ms (CUDA-event median of {REPS}), "
+        f"{len(front_sites)} device->host reads{f' at {front_sites}' if front_sites else ''}")
+    if name == "stereo" and front_sites:
+        raise AssertionError(f"stereo SLAM: the stereo front end read the device: {front_sites}")
+    # Reads through the Tracker by frame kind, on 3 frames past the session,
+    # the keyframe decision forced each way.
+    reads = {}
+    for i, (kind, insert) in zip(range(DEPTH_FRAMES, DEPTH_FRAMES + 3),
+                                 (("reference keyframe", False), ("motion model", False), ("keyframe", True))):
+        if kind == "reference keyframe":
+            tr._velocity = None
+        tr._need_new_keyframe = lambda *a, insert=insert: insert
+        before = dict(tr.metrics.counters)
+        try:
+            (res1, sites), gib = peak_gib(lambda: count_syncs(lambda: depth_session(system, [frames[i]])))
+        finally:
+            del tr._need_new_keyframe
+        got = frame_kinds([dict(counters=dict(tr.metrics.counters), state="", launches={})],
+                          before)[0]["kind"]
+        if res1[0][0] is None or got != kind:
+            raise AssertionError(f"{name} SLAM: frame {i} was not tracked as a {kind} frame ({got})")
+        reads[kind] = sites
+        log(f"  device->host reads of a {kind} frame through the Tracker: {len(sites)}, at {sites}; "
+            f"peak memory {gib:.3f} GiB")
+    per_frame = {k: statistics.median(x["launches"][k] for x in kinds) for k in launches}
+    return dict(launches=launches, per_frame=per_frame)
+
+
+def phase_localization(name: str, system: System, frames: list, poses, smi: str) -> dict:
+    """Localization mode after the stereo session: LOC_FRAMES frames past
+    the mapped region against the frozen map, with visual-odometry points.
+    Fails if the map changes or fewer than LOC_TRACKED of them are tracked.
+    Returns the launches of those frames."""
+    tr = system.tracker
+    m0 = tr.map
+    frozen = {k: getattr(m0, k).clone() for k in ("pt_valid", "pt_xyz", "kf_valid", "kf_R", "kf_t",
+                                                  "kf_obs_pt", "n_kf", "n_pt")}
+    system.activate_localization_mode()
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    first = DEPTH_FRAMES + 3
+    tracked, vo, ms = 0, 0, []
+    for i in range(first, first + LOC_FRAMES):
+        (out, t_ms), = depth_session(system, [frames[i]])
+        tracked += out is not None
+        vo += bool(tr._vo_mode)
+        ms.append(t_ms)
+    system.deactivate_localization_mode()
+    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    changed = [k for k, v in frozen.items() if not torch.equal(getattr(tr.map, k), v)]
+    traj = tr.export_trajectory()
+    _, _, (_, Ra, ta) = trajectory_ate([x for x in traj if x[0] < first], poses, fix_scale=True)
+    est = _centres(traj)
+    gt = _centres([(i, R, t, False) for i, (R, t) in enumerate(poses)])
+    errs = [float(np.linalg.norm(est[i] @ Ra.T + ta - gt[i]))
+            for i in range(first, first + LOC_FRAMES) if i in est]
+    log(f"{name} localization mode on {smi}: {tracked}/{LOC_FRAMES} frames past the mapped region "
+        f"tracked, VO mode engaged on {vo} of them; map changed: {changed or 'no'}; centre error "
+        f"against the truth (the session's rigid alignment) median {statistics.median(errs) if errs else float('nan'):.4f} m, "
+        f"max {max(errs) if errs else float('nan'):.4f} m; {_ms(ms)} per frame; launches {launches}")
+    if changed or tracked < LOC_TRACKED * LOC_FRAMES:
+        raise AssertionError(f"{name} localization mode: map changed {changed}, tracked {tracked}/{LOC_FRAMES}")
+    return launches
+
+
+def phase_multi(scene: StepWallScene, smi: str) -> dict:
+    """MultiTracker.track_stereo over MULTI_B KITTI-sized streams: one
+    batched extraction of the 2B images per frame (exactly one fast_nms
+    launch), every frame of every stream tracked, each stream within the
+    stereo session's span and rigid-ATE gates. Returns its launches."""
+    paths = [orbit_trajectory(MULTI_FRAMES, **p) for p in MULTI_POSES]
+    frames = [render_stereo_frames(scene, KITTI_CAM, p, device="cuda") for p in paths]
+    mt = MultiTracker.uniform(TrackerConfig(cam=KITTI_CAM, orb=KITTI_ORB, **STEREO_TRACKER), MULTI_B,
+                              device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    per_frame, ms, missed = [], [], []
+    for i in range(MULTI_FRAMES):
+        seen = (fast_nms.launches, gather_patches.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = mt.track_stereo(torch.stack([f[i][0] for f in frames]),
+                               torch.stack([f[i][1] for f in frames]), i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_frame.append((fast_nms.launches - seen[0], gather_patches.launches - seen[1]))
+        missed += [(i, b) for b, o in enumerate(outs) if o is None]
+    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    bad = []
+    for b, tr in enumerate(mt.trackers):
+        fails, summary = depth_gates(f"stream {b}", tr.export_trajectory(), paths[b], MULTI_FRAMES)
+        bad += fails
+        log(f"  stream {b}: {summary}; {tr._n_kf_host} keyframes")
+    log(f"MultiTracker.track_stereo on {smi}: B={MULTI_B} streams at {KITTI_CAM.width}x{KITTI_CAM.height}, "
+        f"{KITTI_ORB.n_features} features, {MULTI_FRAMES} frames: {_ms(ms)} per batched frame; (fast_nms, "
+        f"gather_patches) launches per frame {per_frame}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if missed:
+        bad.append(f"untracked (frame, stream): {missed}")
+    if any(f != 1 or g != 1 + MULTI_B for f, g in per_frame):
+        bad.append(f"launches per frame {per_frame}, want (1, {1 + MULTI_B})")
+    if bad:
+        raise AssertionError(f"MultiTracker: {bad}")
+    return launches
+
+
+def phase_stereo(scene: StepWallScene, smi: str) -> dict:
+    """Stereo SLAM at KITTI00-02.yaml's operating point (phase_depth), one
+    of its frames on the CPU against the card, then localization mode past
+    the mapped region."""
+    cam, cfg = KITTI_CAM, KITTI_ORB
+    poses = orbit_trajectory(DEPTH_FRAMES + 3 + LOC_FRAMES, **STEREO_POSES)
+    frames = render_stereo_frames(scene, cam, poses, device="cuda")
+    system = System(cam, SensorType.STEREO, orb=cfg, device="cuda", **STEREO_TRACKER)
+
+    def front(f):
+        return steps.stereo_frame_features(f[0], f[1], cfg, cam.fx, cam.bf)
+
+    out = phase_depth("stereo", system, frames, poses, smi, front)
+    L, R = frames[DEPTH_FRAMES // 2]
+    g = front((L, R))
+    t0 = time.perf_counter()
+    c = steps.stereo_frame_features(L.cpu(), R.cpu(), cfg, cam.fx, cam.bf)
+    cpu_s = time.perf_counter() - t0
+    same_kp = torch.equal(g.xy.cpu(), c.xy) and torch.equal(g.valid.cpu(), c.valid)
+    gv, cv = g.u_right.cpu() >= 0, c.u_right >= 0
+    agree = float((gv == cv)[c.valid].float().mean())
+    both = gv & cv
+    du = float((g.u_right.cpu() - c.u_right)[both].abs().max()) if bool(both.any()) else float("inf")
+    log(f"  stereo_frame_features of frame {DEPTH_FRAMES // 2} on the CPU ({cpu_s:.1f} s) against the "
+        f"card: keypoints {'equal' if same_kp else 'DIFFERENT'}, stereo verdict equal on {agree:.4f} of "
+        f"{int(c.valid.sum())} keypoints, {int(both.sum())} matched on both, max |u_right| diff {du:.2e} px")
+    if not (same_kp and agree >= 0.995 and du < 1e-3):
+        raise AssertionError("stereo SLAM: stereo_frame_features differs on the card and the CPU")
+    out["loc_launches"] = phase_localization("stereo", system, frames, poses, smi)
+    return out
+
+
+def phase_rgbd(smi: str) -> dict:
+    """RGB-D SLAM at TUM1.yaml's operating point (phase_depth) over a
+    StepWallScene at half the default wall depths, so part of every frame's
+    keypoints lie below th_depth (40 x 40 / 517.3 = 3.09 m) and the
+    close-point branches run; depth as uint16 at 5000 per metre."""
+    cam, cfg = TUM_CAM, TUM_ORB
+    scene = StepWallScene(np.random.default_rng(6), depths=RGBD_DEPTHS)
+    poses = orbit_trajectory(DEPTH_FRAMES + 3, **RGBD_POSES)
+    frames = render_rgbd_frames(scene, cam, poses, device="cuda")
+    system = System(cam, SensorType.RGBD, orb=cfg, device="cuda", **RGBD_TRACKER)
+    tr = system.tracker
+    depth_dev = {}
+
+    def front(f):
+        key = id(f[1])
+        if key not in depth_dev:  # the uint16 image crosses to the card once, outside the timing
+            depth_dev[key] = system._input(f[1])
+        return tr._frame_features_rgbd(f[0], depth_dev[key])
+
+    f = front(frames[0])
+    has = f.depth > 0
+    close = has & (f.depth < tr._th_depth)
+    log(f"RGB-D frame 0: {int(f.valid.sum())} keypoints, {int(has.sum())} with depth, {int(close.sum())} "
+        f"closer than th_depth {tr._th_depth:.3f} m, {int((has & ~close).sum())} farther")
+    if not (int(close.sum()) > 50 and int((has & ~close).sum()) > 50):
+        raise AssertionError("RGB-D SLAM: the scene does not put keypoints on both sides of th_depth")
+    return phase_depth("rgbd", system, frames, poses, smi, front)
+
+
+def timed(name: str, fn, *args):
+    """fn(*args), with the phase's wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_times(imgs, smi: str) -> dict:
     """Each kernel against its plain version (and gather_patches against
     one aten::index call, and its wrapper) in turns, at B=4 and B=1: the
@@ -744,8 +1186,8 @@ def kernel_times(imgs, smi: str) -> dict:
 
 
 def main() -> int:
-    smi = phase_device()
-    phase_build()
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -758,33 +1200,53 @@ def main() -> int:
     log(f"scene and inputs: {time.perf_counter() - t0:.1f} s")
     imgs = torch.from_numpy(inp["imgs"]).cuda()
 
-    err = phase_kernels(imgs, rng)
-    phase_device_assert()
-    args, launches = phase_slice(inp)
-    session, (_, late), map_launches, per_frame = phase_map(scene)
+    err = timed("kernels", phase_kernels, imgs, rng)
+    timed("device assert", phase_device_assert)
+    args, launches = timed("slice", phase_slice, inp)
+    session, (_, late), map_launches, per_frame = timed("map slice", phase_map, scene)
 
-    kt = kernel_times(imgs, smi)
+    kt = timed("kernel times", kernel_times, imgs, smi)
     step_ms = cuda_ms(lambda: track_step_batched(CAM, CFG, *args))
     log(f"times on {smi}:")
     log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
-    map_times(session, late, smi)
-    mono_launches = phase_mono(scene, smi)
+    timed("map times", map_times, session, late, smi)
+    mono_launches = timed("mono SLAM", phase_mono, scene, smi)
+    stereo_scene = StepWallScene(np.random.default_rng(5), **STEREO_SCENE)
+    sk = timed("stereo kernels", phase_stereo_kernels, stereo_scene, smi)
+    stereo = timed("stereo SLAM", phase_stereo, stereo_scene, smi)
+    rgbd = timed("RGB-D SLAM", phase_rgbd, smi)
+    multi_launches = timed("MultiTracker", phase_multi, stereo_scene, smi)
+    for name in err:
+        err[name] = max(err[name], sk["err"][name])
+
+    def stereo_shape(key: str) -> dict:
+        return {"ms": sk["per_call"][key], "device_ms": sk["dev"][key],
+                "plain_ms": sk["per_call"][key + " plain"], "bound_ms": sk["bounds"][key][0],
+                "bound_by": sk["bounds"][key][1], "library_ms": sk["per_call"].get(key + " library")}
 
     sources = {
-        "fast_nms": ("tpuslam_torch/csrc/fast_nms.cu", "tpuslam/ops/fast_pallas.py:100"),
-        "gather_patches": ("tpuslam_torch/csrc/gather_patches.cu", "tpuslam/ops/patches.py:164"),
+        "fast_nms": ("tpuslam_torch/csrc/fast_nms.cu", "tpuslam/ops/fast_pallas.py:100",
+                     {"stereo": stereo_shape("fast_nms")}),
+        "gather_patches": ("tpuslam_torch/csrc/gather_patches.cu", "tpuslam/ops/patches.py:164",
+                           {"stereo_describe": stereo_shape("gather describe"),
+                            "stereo_sad": stereo_shape("gather sad")}),
     }
     main_b = kt[B]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + map_launches[name] + mono_launches[name],
+         "launches": (launches[name] + map_launches[name] + mono_launches[name]
+                      + stereo["launches"][name] + stereo["loc_launches"][name]
+                      + rgbd["launches"][name] + multi_launches[name]),
          "launches_per_frame": statistics.median(d[name] for d in per_frame),
+         "launches_per_stereo_frame": stereo["per_frame"][name],
+         "launches_per_rgbd_frame": rgbd["per_frame"][name],
          "max_abs_err": err[name],
          "ms": main_b["per_call"][name], "plain_ms": main_b["per_call"][name + " plain"],
          "device_ms": main_b["dev"][name],
          "bound_ms": main_b["bounds"][name][0], "bound_by": main_b["bounds"][name][1],
-         "library_ms": main_b["per_call"].get(name + " library")}
-        for name, (src, rep) in sources.items()
+         "library_ms": main_b["per_call"].get(name + " library"),
+         "stereo_shapes": shapes}
+        for name, (src, rep, shapes) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

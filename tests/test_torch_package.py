@@ -33,6 +33,7 @@ from tpuslam_torch.ops import orb as torb
 from tpuslam_torch.ops.fast import TILE_H, TILE_W, fast_nms, fast_nms_plain, fast_nms_pyramid, level_table
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
 from tpuslam_torch.ops.patches import PSIZE, gather_patches, gather_patches_plain
+from tpuslam_torch.pipeline.multi import MultiTracker
 from tpuslam_torch.pipeline.system import System
 from tpuslam_torch.pipeline.tracker import Tracker
 
@@ -46,13 +47,14 @@ def test_import_pulls_in_no_jax():
         "import sys, pkgutil, importlib, tpuslam_torch\n"
         "for m in pkgutil.walk_packages(tpuslam_torch.__path__, 'tpuslam_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam', 'yaml'))\n"
         "assert not bad, bad\n"
         "assert {'tpuslam_torch.mapstate.core', 'tpuslam_torch.pipeline.steps',\n"
         "        'tpuslam_torch.pipeline.tracker', 'tpuslam_torch.pipeline.system',\n"
         "        'tpuslam_torch.sfm.initializer', 'tpuslam_torch.sfm.pnp', 'tpuslam_torch.sfm.sim3solver',\n"
         "        'tpuslam_torch.optim.ba', 'tpuslam_torch.geometry.triangulation',\n"
-        "        'tpuslam_torch.utils.metrics'} <= set(sys.modules)\n"
+        "        'tpuslam_torch.utils.metrics', 'tpuslam_torch.ops.stereo',\n"
+        "        'tpuslam_torch.pipeline.multi', 'tpuslam_torch.io.settings'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -76,7 +78,7 @@ def test_cpu_tensors_take_the_plain_versions(rng):
 @pytest.mark.parametrize("fn", [
     convert.array_to_tensor, convert.features_to_torch, convert.pose_obs_to_torch,
     convert.frame_features_to_torch, convert.map_to_torch, convert.ba_problem_to_torch,
-    mapcore.make_empty_map, Tracker, System,
+    mapcore.make_empty_map, Tracker, System, MultiTracker,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -379,3 +381,131 @@ def test_mono_session_on_card_matches_cpu():
     for s in (cs, gs):
         ate, n, _ = trajectory_ate(s.tracker.export_trajectory(), poses)
         assert n == sum(c_ok) and ate < 0.03
+
+
+KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448, width=1241, height=376)
+
+
+def _kitti_pair(device):
+    """A stereo pair at KITTI00-02.yaml's size, rendered on `device`, and
+    its camera."""
+    from tpuslam_torch.geometry.camera import PinholeCamera
+    from tpuslam_torch.testing import StepWallScene, orbit_trajectory, render_stereo_frames
+
+    cam = PinholeCamera(**KITTI_CAM)
+    scene = StepWallScene(np.random.default_rng(5))
+    (L, R), = render_stereo_frames(scene, cam, orbit_trajectory(1), device=device)
+    return cam, L, R
+
+
+@pytest.mark.cuda
+def test_kernels_at_the_stereo_shapes_match_plain_on_card():
+    """FAST+NMS over the 8 levels of a (2, 376, 1241) batch in one launch,
+    and the gather on its 1257-byte-wide atlas at the describe windows and
+    at the SAD windows, each equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.ops.image import build_pyramid, pyramid_shapes
+    from tpuslam_torch.ops.orb import ORBFeatures, extract_orb_batched_atlas
+    from tpuslam_torch.ops.stereo import level_tables, row_band_match, sad_windows
+
+    cfg = ORBConfig(n_features=2000)
+    cam, L, R = _kitti_pair("cuda")
+    imgs = torch.stack([L, R])
+    levels = build_pyramid(imgs, 8, 1.2)
+    fast_nms.launches = 0
+    got = fast_nms_pyramid(levels, cfg.min_th_fast)
+    torch.cuda.synchronize()
+    assert fast_nms.launches == 1
+    for x, g in zip(levels, got):
+        assert torch.equal(g, fast_nms_plain(x, cfg.min_th_fast)), tuple(x.shape)
+    *_, atlas, corner = torb.detect_batched(imgs, cfg)
+    assert atlas.shape[1] == 1257
+    fb, _ = extract_orb_batched_atlas(imgs, cfg)
+    fL, fR = (ORBFeatures(*(x[b] for x in fb)) for b in (0, 1))
+    tabs = level_tables(tuple(pyramid_shapes(376, 1241, 8, 1.2)), 1.2, atlas.device)
+    i1, _ = row_band_match(fL, fR, tabs, cam.fx)
+    sad_corner = sad_windows(tabs, 0, atlas.shape[0] // 2, fL.level, fL.xy[:, 0], fL.xy[:, 1],
+                             fR.xy[i1, 0])[0]
+    for c in (corner, sad_corner):
+        g = gather_patches(atlas, c)
+        torch.cuda.synchronize()
+        assert torch.equal(g, gather_patches_plain(atlas, c)), tuple(c.shape)
+
+
+@pytest.mark.cuda
+def test_stereo_front_end_on_card_matches_cpu():
+    """stereo_frame_features at 1241x376 and 2000 features on the card and
+    the CPU: the same keypoints, the stereo verdict equal on >= 99.5% of
+    them, u_right within 1e-3 px where both match; and stereo_match on the
+    same features with tied Hamming minima picks the same right keypoints
+    (the lowest index) on both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.ops.image import build_pyramid
+    from tpuslam_torch.ops.orb import ORBFeatures
+    from tpuslam_torch.ops.stereo import stereo_match
+    from tpuslam_torch.pipeline.steps import stereo_frame_features
+
+    cfg = ORBConfig(n_features=2000)
+    cam, L, R = _kitti_pair("cpu")
+    g = stereo_frame_features(L.cuda(), R.cuda(), cfg, cam.fx, cam.bf)
+    c = stereo_frame_features(L, R, cfg, cam.fx, cam.bf)
+    assert torch.equal(g.xy.cpu(), c.xy) and torch.equal(g.valid.cpu(), c.valid)
+    gv, cv = g.u_right.cpu() >= 0, c.u_right >= 0
+    assert (gv == cv)[c.valid].float().mean() >= 0.995
+    both = gv & cv
+    assert int(both.sum()) > 500 and float((g.u_right.cpu() - c.u_right)[both].abs().max()) < 1e-3
+
+    fb = extract_orb_batched(torch.stack([L, R]), cfg)
+    fL, fR = (ORBFeatures(*(x[b] for x in fb)) for b in (0, 1))
+    src = torch.arange(fR.xy.shape[0])
+    src = torch.where(src % 3 == 2, src - 1, src)  # duplicated right descriptors: ties
+    xy = fR.xy.clone()
+    xy[:, 1] = fR.xy[src, 1]
+    fR = fR._replace(xy=xy, desc=fR.desc[src], level=fR.level[src], valid=fR.valid[src])
+    pL, pR = build_pyramid(L, 8, 1.2), build_pyramid(R, 8, 1.2)
+    ref = stereo_match(fL, fR, pL, pR, cfg, cam.fx, cam.bf)
+    got = stereo_match(ORBFeatures(*(x.cuda() for x in fL)), ORBFeatures(*(x.cuda() for x in fR)),
+                       [x.cuda() for x in pL], [x.cuda() for x in pR], cfg, cam.fx, cam.bf)
+    assert torch.equal(got[2].cpu(), ref[2])
+    torch.testing.assert_close(got[0].cpu(), ref[0], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor", ["STEREO", "RGBD"])
+def test_depth_session_on_card_matches_cpu(sensor):
+    """A 12-frame stereo or RGB-D System at 320x240 and 500 features on the
+    card and on the CPU: every frame tracked on both, initialized on the
+    first, both kernels on every frame, both rigid ATEs below 5 cm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.geometry.camera import PinholeCamera
+    from tpuslam_torch.pipeline.system import SensorType
+    from tpuslam_torch.testing import (
+        StepWallScene,
+        depth_session,
+        orbit_trajectory,
+        render_rgbd_frames,
+        render_stereo_frames,
+        trajectory_ate,
+    )
+
+    cam = PinholeCamera(fx=350.0, fy=350.0, cx=160.0, cy=120.0, bf=42.0, width=320, height=240)
+    scene = StepWallScene(np.random.default_rng(5))
+    poses = orbit_trajectory(12, step=0.05)
+    render = render_stereo_frames if sensor == "STEREO" else render_rgbd_frames
+    frames = render(scene, cam, poses)
+    for device in ("cpu", "cuda"):
+        system = System(cam, SensorType[sensor], orb=ORBConfig(n_features=500), device=device,
+                        max_keyframes=16, max_points=4096, kf_max_frames=8, enable_loop_closing=False,
+                        depth_map_factor=1.0 if sensor == "STEREO" else 1 / 5000)
+        fast_nms.launches = gather_patches.launches = 0
+        res = depth_session(system, [tuple(x.to(device) if torch.is_tensor(x) else x for x in f)
+                                     for f in frames])
+        assert all(out is not None for out, _ in res), device
+        ate, n, _ = trajectory_ate(system.tracker.export_trajectory(), poses, fix_scale=True)
+        assert n == 12 and ate < 0.05, (device, ate)
+        if device == "cuda":
+            assert fast_nms.launches == 12
+            assert gather_patches.launches == (24 if sensor == "STEREO" else 12)

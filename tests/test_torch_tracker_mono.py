@@ -209,24 +209,6 @@ def test_unported_config_flags_raise(kw, item):
         Tracker(TrackerConfig(cam=CAM, **{**KW, **kw}), device="cpu")
 
 
-@pytest.mark.parametrize("call", ["stereo_system", "rgbd_system", "track_stereo", "track_rgbd",
-                                  "track_depth_features"])
-def test_unported_entry_points_raise(call):
-    with pytest.raises(NotImplementedError, match="A9"):
-        if call == "stereo_system":
-            System(CAM, SensorType.STEREO, device="cpu", **KW)
-        elif call == "rgbd_system":
-            System(CAM, SensorType.RGBD, device="cpu", **KW)
-        else:
-            system = System(CAM, device="cpu", **{**KW, "max_keyframes": 4, "max_points": 64})
-            if call == "track_stereo":
-                system.track_stereo(None, None, 0.0)
-            elif call == "track_rgbd":
-                system.track_rgbd(None, None, 0.0)
-            else:
-                system.tracker.track_depth_features(None, 0)
-
-
 def test_tracker_defaults_match_jax():
     """Every field and default of the JAX package's TrackerConfig, and the
     entry points on the card unless asked."""

@@ -63,6 +63,19 @@ def project(cam: PinholeCamera, x_cam: torch.Tensor, distorted: bool = False) ->
     return torch.stack([u, v], dim=-1)
 
 
+def project_stereo(cam: PinholeCamera, x_cam: torch.Tensor) -> torch.Tensor:
+    """Camera-frame 3D points (..., 3) -> (u_left, v, u_right) (..., 3),
+    u_right = u_left - bf / z, the virtual right coordinate of stereo and
+    RGB-D observations."""
+    uv = project(cam, x_cam)
+    z = x_cam[..., 2]
+    z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    # float32(bf) / z, a true division (the scalar's __rtruediv__ would
+    # multiply by a reciprocal and round twice).
+    ur = uv[..., 0] - torch.full_like(z, cam.bf) / z
+    return torch.cat([uv, ur[..., None]], dim=-1)
+
+
 def unproject(cam: PinholeCamera, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """Undistorted pixels (..., 2) + depth (...,) -> camera-frame 3D (..., 3)."""
     x = (uv[..., 0] - cam.cx) / cam.fx * depth

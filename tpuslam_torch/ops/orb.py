@@ -214,11 +214,36 @@ def _orient_and_describe_at(atlas: torch.Tensor, corner: torch.Tensor):
     return angle, _pack_bits(vals[:, :, 0] < vals[:, :, 1])
 
 
+def _atlas_block(lvl: torch.Tensor, W_atlas: int) -> torch.Tensor:
+    """(B, H, W) level images -> (B, H + 2 PAD, W_atlas) uint8: edge-padded
+    by _PAD, zero-filled on the right to the atlas width, rounded half to
+    even and clipped to [0, 255]."""
+    blk = F.pad(lvl[:, None], (_PAD, _PAD, _PAD, _PAD), mode="replicate")[:, 0]
+    blk = F.pad(blk, (0, W_atlas - blk.shape[-1]))
+    return torch.clamp(torch.round(blk), 0.0, 255.0).to(torch.uint8)
+
+
+def build_patch_atlas(levels):
+    """Single-pyramid uint8 patch atlas: the edge-padded blocks of the
+    (H_l, W_l) `levels` stacked row-wise, the layout gather_patches takes.
+    Returns (atlas (Ha, Wa) uint8, row offset of each level (n_levels,)
+    np.int32, Wa). Stream b's slab of detect_batched's atlas, rows
+    [b Ha, (b + 1) Ha), is this atlas of b's pyramid."""
+    W_atlas = levels[0].shape[-1] + 2 * _PAD
+    blocks, offs, off = [], [], 0
+    for lvl in levels:
+        blocks.append(_atlas_block(lvl[None], W_atlas)[0])
+        offs.append(off)
+        off += blocks[-1].shape[0]
+    return torch.cat(blocks, dim=0), np.asarray(offs, np.int32), W_atlas
+
+
 def detect_batched(imgs: torch.Tensor, config: ORBConfig):
     """Everything before the descriptors, for (B, H, W) images: pyramid,
     FAST+NMS of every level with a budget (one kernel launch), selection per
     level, and the stream-major uint8 atlas of edge-padded levels with each
-    keypoint's 47x47 patch corner in it.
+    keypoint's 47x47 patch corner in it. Every level has its block, so each
+    stream's slab is build_patch_atlas of its pyramid.
     Returns (xy, response, level, valid), each (B, N, ...), then atlas
     (B * Ha, Wa) uint8 and corner (B * N, 2) int32."""
     B = imgs.shape[0]
@@ -228,24 +253,23 @@ def detect_batched(imgs: torch.Tensor, config: ORBConfig):
     scales = config.level_scales()
 
     used = [l for l, n_l in enumerate(budgets) if n_l > 0]
-    scores = fast_nms_pyramid([levels[l] for l in used], config.min_th_fast)
+    scores = dict(zip(used, fast_nms_pyramid([levels[l] for l in used], config.min_th_fast)))
 
     xs, resps, valids, lvls, corners, atlas_blocks = [], [], [], [], [], []
     row_off = 0
     W_atlas = levels[0].shape[-1] + 2 * _PAD
-    for l, score in zip(used, scores):  # score: (B, H_l, W_l)
-        lvl_imgs, n_l = levels[l], budgets[l]
-        xy, resp, valid = _select_level_keypoints(score, n_l, config.cell_size, config.ini_th_fast)
+    for l, lvl_imgs in enumerate(levels):
         # Edge-padded uint8 level block; the detection border keeps every
         # valid keypoint's 47x47 patch inside its own block.
-        H_l = lvl_imgs.shape[-2]
-        blk = F.pad(lvl_imgs[:, None], (_PAD, _PAD, _PAD, _PAD), mode="replicate")[:, 0]
-        blk = F.pad(blk, (0, W_atlas - blk.shape[-1]))
-        atlas_blocks.append(torch.clamp(torch.round(blk), 0.0, 255.0).to(torch.uint8))
-        cy = torch.clamp(xy[..., 1] + (_PAD - _CENTER_RAW + row_off), min=0)
+        atlas_blocks.append(_atlas_block(lvl_imgs, W_atlas))
+        block_row, row_off = row_off, row_off + atlas_blocks[-1].shape[-2]
+        if l not in scores:
+            continue
+        n_l = budgets[l]
+        xy, resp, valid = _select_level_keypoints(scores[l], n_l, config.cell_size, config.ini_th_fast)
+        cy = torch.clamp(xy[..., 1] + (_PAD - _CENTER_RAW + block_row), min=0)
         cx = torch.clamp(xy[..., 0] + (_PAD - _CENTER_RAW), min=0)
         corners.append(torch.stack([cy, cx], dim=-1))
-        row_off += H_l + 2 * _PAD
         # float32(scale) * float32(xy), as the JAX package's weakly typed product.
         xs.append(xy.to(torch.float32) * float(np.float32(scales[l])))
         resps.append(resp)
@@ -271,14 +295,21 @@ def detect_batched(imgs: torch.Tensor, config: ORBConfig):
             torch.cat(valids, dim=1), atlas, corner)
 
 
-def extract_orb_batched(imgs: torch.Tensor, config: ORBConfig) -> ORBFeatures:
-    """ORB extraction for (B, H, W) grayscale images in [0, 255]. Outputs are
-    (B, n_features, ...) with a validity mask; coordinates are level 0."""
+def extract_orb_batched_atlas(imgs: torch.Tensor, config: ORBConfig):
+    """extract_orb_batched, and the stream-major (B * Ha, Wa) uint8 atlas
+    its descriptors were gathered from (detect_batched's), which the stereo
+    SAD refinement reuses."""
     xy, response, level, valid, atlas, corner = detect_batched(imgs, config)
     B, n = level.shape
     angle, desc = _orient_and_describe_at(atlas, corner)
     return ORBFeatures(xy=xy, response=response, angle=angle.reshape(B, n), level=level,
-                       desc=desc.reshape(B, n, 8), valid=valid)
+                       desc=desc.reshape(B, n, 8), valid=valid), atlas
+
+
+def extract_orb_batched(imgs: torch.Tensor, config: ORBConfig) -> ORBFeatures:
+    """ORB extraction for (B, H, W) grayscale images in [0, 255]. Outputs are
+    (B, n_features, ...) with a validity mask; coordinates are level 0."""
+    return extract_orb_batched_atlas(imgs, config)[0]
 
 
 def extract_orb(img: torch.Tensor, config: ORBConfig) -> ORBFeatures:

@@ -1,5 +1,5 @@
 """Tracking and mapping step functions over (MapState, frame tensors).
-Port of tpuslam/pipeline/steps.py (all of it but stereo_frame_features).
+Port of tpuslam/pipeline/steps.py.
 
 Each function returns what its JAX counterpart returns, in the same order.
 The JAX package compiles the fused step into one program whose data-
@@ -479,6 +479,41 @@ def fused_track_frame_image(cam: PinholeCamera, orb, m: MapState, img: torch.Ten
         max_local_pts, cand_cap,
     )
     return (feats,) + out
+
+
+def stereo_features(fb, atlas: torch.Tensor, left: int, right: int, img_shape: tuple,
+                    config, fx: float, bf: float) -> FrameFeatures:
+    """A stereo frame's FrameFeatures from a batched extraction: streams
+    `left` and `right` of the batch features `fb` (ORBFeatures, (B, N,
+    ...)) of (H, W) = img_shape images, matched by ops/stereo.py over the
+    extraction's own atlas (each stream's slab holds its whole pyramid).
+    u_right = -1 and depth = 0 where unmatched."""
+    from tpuslam_torch.ops.image import pyramid_shapes
+    from tpuslam_torch.ops.orb import ORBFeatures
+    from tpuslam_torch.ops.stereo import stereo_match_atlas
+
+    fL = ORBFeatures(*(leaf[left] for leaf in fb))
+    fR = ORBFeatures(*(leaf[right] for leaf in fb))
+    Ha = atlas.shape[0] // fb.xy.shape[0]
+    shapes = tuple(pyramid_shapes(*img_shape, config.n_levels, config.scale_factor))
+    u_right, depth, ok = stereo_match_atlas(fL, fR, atlas, left * Ha, right * Ha, shapes,
+                                            config, fx, bf)
+    return FrameFeatures(xy=fL.xy, level=fL.level, angle=fL.angle, desc=fL.desc, valid=fL.valid,
+                         u_right=torch.where(ok, u_right, -1.0),
+                         depth=torch.where(ok, depth, 0.0))
+
+
+def stereo_frame_features(imgL: torch.Tensor, imgR: torch.Tensor, config, fx: float,
+                          bf: float) -> FrameFeatures:
+    """Stereo Frame construction: ORB on both (H, W) images as one B=2
+    extraction (one FAST+NMS launch, one descriptor gather), then stereo
+    matching with SAD refinement over the extraction's atlas (one more
+    gather). No device->host read. Returns the left frame's FrameFeatures
+    with u_right and depth filled."""
+    from tpuslam_torch.ops.orb import extract_orb_batched_atlas
+
+    fb, atlas = extract_orb_batched_atlas(torch.stack([imgL, imgR]), config)
+    return stereo_features(fb, atlas, 0, 1, tuple(imgL.shape[-2:]), config, fx, bf)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The public System facade, monocular: construct with camera settings,
-feed frames, save trajectories. Port of tpuslam/pipeline/system.py (the
-viewer, checkpoint and render hooks are not ported yet)."""
+"""The public System facade: construct with camera settings and a sensor
+type (monocular, stereo or RGB-D), feed frames, save trajectories. Port of
+tpuslam/pipeline/system.py (the viewer, checkpoint and render hooks are not
+ported yet)."""
 
 from __future__ import annotations
 
@@ -28,14 +29,12 @@ def _quat(Rwc: np.ndarray) -> np.ndarray:
 
 
 class System:
-    """System::TrackMonocular / SaveTrajectoryTUM / SaveTrajectoryKITTI.
-    The tracker runs on `device` ("cuda" unless the caller asks for the
-    CPU)."""
+    """System::TrackMonocular / TrackStereo / TrackRGBD / SaveTrajectoryTUM
+    / SaveTrajectoryKITTI. The tracker runs on `device` ("cuda" unless the
+    caller asks for the CPU)."""
 
     def __init__(self, cam: PinholeCamera, sensor: SensorType = SensorType.MONOCULAR,
                  orb: Optional[ORBConfig] = None, device="cuda", **tracker_kwargs):
-        if sensor != SensorType.MONOCULAR:
-            raise NotImplementedError(f"not ported yet: {sensor.name} input (ROADMAP A9)")
         self.sensor = sensor
         self.tracker = Tracker(TrackerConfig(cam=cam, orb=orb or ORBConfig(), **tracker_kwargs),
                                device=device)
@@ -44,16 +43,29 @@ class System:
     def track_monocular(self, img, timestamp: float):
         """One grayscale frame (an (H, W) array or tensor); returns T_cw (R,
         t) as numpy, or None."""
-        frame_id = self.tracker.n_frames
-        self._timestamps[frame_id] = timestamp
-        img = torch.as_tensor(img, dtype=torch.float32).to(self.tracker.device)
-        return self.tracker.track_monocular(img, frame_id)
+        return self.tracker.track_monocular(self._input(img), self._frame_id(timestamp))
 
     def track_stereo(self, img_left, img_right, timestamp: float):
-        raise NotImplementedError("not ported yet: stereo input (ROADMAP A9)")
+        """One rectified grayscale pair; returns T_cw (R, t) as numpy, or
+        None."""
+        frame_id = self._frame_id(timestamp)
+        return self.tracker.track_stereo(self._input(img_left), self._input(img_right), frame_id)
 
     def track_rgbd(self, img, depth, timestamp: float):
-        raise NotImplementedError("not ported yet: RGB-D input (ROADMAP A9)")
+        """One grayscale image and its registered depth image (raw units:
+        depth_map_factor converts to metres); returns T_cw (R, t) as numpy,
+        or None."""
+        frame_id = self._frame_id(timestamp)
+        return self.tracker.track_rgbd(self._input(img), self._input(depth), frame_id)
+
+    def _frame_id(self, timestamp: float) -> int:
+        frame_id = self.tracker.n_frames
+        self._timestamps[frame_id] = timestamp
+        return frame_id
+
+    def _input(self, a) -> torch.Tensor:
+        """An array or tensor as float32 on the tracker's device."""
+        return torch.as_tensor(a, dtype=torch.float32).to(self.tracker.device)
 
     @property
     def state(self) -> TrackingState:

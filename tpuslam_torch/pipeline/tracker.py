@@ -1,11 +1,15 @@
 """Host-side tracking orchestrator: the state machine of the reference's
-Tracking thread over the port's step functions, monocular path. Port of
-tpuslam/pipeline/tracker.py.
+Tracking thread over the port's step functions, for monocular, stereo and
+RGB-D input. Port of tpuslam/pipeline/tracker.py.
 
 States: NO_IMAGES_YET, NOT_INITIALIZED, OK, LOST. Per frame: ORB
-extraction -> (two-view initialization | the fused tracking step) ->
-NeedNewKeyFrame -> LocalMapping (mapping_front) and two chunks of local BA,
-synchronously on each keyframe -> relocalization when LOST.
+extraction (stereo: both images in one batch, then stereo matching; RGB-D:
+the depth image sampled at each keypoint) -> (two-view initialization, or
+one keyframe from the depths | the fused tracking step) -> NeedNewKeyFrame
+-> LocalMapping (mapping_front) and two chunks of local BA, synchronously
+on each keyframe -> relocalization when LOST. A depth sensor's keyframes
+add map points from their close depths, and in localization mode its
+frames also track visual-odometry points made from the last frame's depths.
 
 The device is the tracker's (`device`, "cuda" unless the caller asks for
 the CPU). A steady-state frame makes one packed device->host fetch beyond
@@ -16,7 +20,7 @@ its config, through `_draw_picks`.
 
 Not ported yet, and refused with NotImplementedError: loop closing and
 place recognition (ROADMAP A10), background or multi-process mapping and
-the distributed bundle adjuster (A12), stereo and RGB-D input (A9).
+the distributed bundle adjuster (A12).
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import PinholeCamera, undistort_points
-from tpuslam_torch.geometry.se3 import se3_compose, se3_inverse
+from tpuslam_torch.geometry.camera import PinholeCamera, undistort_points, unproject
+from tpuslam_torch.geometry.se3 import se3_apply, se3_compose, se3_inverse
 from tpuslam_torch.mapstate.core import (
     FrameFeatures,
     MapState,
@@ -134,7 +138,7 @@ def _set(a: torch.Tensor, i: int, v) -> torch.Tensor:
 
 
 class Tracker:
-    """Single-session monocular SLAM tracker."""
+    """Single-session SLAM tracker: monocular, stereo or RGB-D."""
 
     def __init__(self, config: TrackerConfig, device="cuda"):
         why = _unported(config)
@@ -185,6 +189,14 @@ class Tracker:
         self._n_kf_host = 0  # host mirror of the keyframe watermark
         self._last_pose_np = None  # the current pose from the packed fetch
         self._pending_pt_remap = None  # old -> new point slots after compaction
+        # Set by a stereo / RGB-D initialization (a reset clears it).
+        self._depth_mode = False
+        # Localization-mode visual odometry: _vo_mode is the reference's mbVO
+        # (the last frame tracked mostly VO points); _vo_xyz (N, 3) and
+        # _vo_valid (N,) are the last frame's VO points in the world.
+        self._vo_mode = False
+        self._vo_xyz: Optional[torch.Tensor] = None
+        self._vo_valid: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------ util
 
@@ -205,25 +217,34 @@ class Tracker:
             if self.stage_sync and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-    def _frame_features(self, img: torch.Tensor, init: bool = False) -> FrameFeatures:
-        f = extract_orb(img, self._init_orb if init else self.cfg.orb)
+    def _mono_features(self, f) -> FrameFeatures:
+        """FrameFeatures of one image's ORBFeatures: undistorted xy, no depth."""
         xy = f.xy
         c = self.cfg.cam
         if abs(c.k1) > 1e-12 or abs(c.k2) > 1e-12:
             xy = undistort_points(c, xy)
         n = xy.shape[0]
         return FrameFeatures(xy=xy, level=f.level, angle=f.angle, desc=f.desc, valid=f.valid,
-                             u_right=torch.full((n,), -1.0, device=img.device),
-                             depth=torch.zeros((n,), device=img.device))
+                             u_right=torch.full((n,), -1.0, device=xy.device),
+                             depth=torch.zeros((n,), device=xy.device))
+
+    def _frame_features(self, img: torch.Tensor, init: bool = False) -> FrameFeatures:
+        return self._mono_features(extract_orb(img, self._init_orb if init else self.cfg.orb))
 
     def _pad_feats(self, feats: FrameFeatures) -> FrameFeatures:
         return pad_feats(feats, self.kp_capacity)
+
+    @staticmethod
+    def _pose_np(R: torch.Tensor, t: torch.Tensor):
+        """(R, t) on the host in one device->host read."""
+        p = torch.cat([R.reshape(-1), t.reshape(-1)]).cpu().numpy()
+        return p[:9].reshape(3, 3), p[9:12]
 
     def _record_pose(self, frame_id, R, t, lost=False):
         ref = self._last_kf_idx
         if ref >= 0:
             R, t = se3_compose(R, t, *se3_inverse(self.map.kf_R[ref], self.map.kf_t[ref]))
-        self.trajectory.append((frame_id, ref, R.cpu().numpy(), t.cpu().numpy(), lost))
+        self.trajectory.append((frame_id, ref, *self._pose_np(R, t), lost))
 
     # ------------------------------------------------------- initialization
 
@@ -261,13 +282,10 @@ class Tracker:
         t2 = res.t / med
 
         r2v = X - (-(res.R.T @ t2))
-        d2 = torch.linalg.norm(r2v, dim=-1)
-        max_d = d2 * self.scale_factors[torch.clamp(cur.level[idx], 0, cfg.orb.n_levels - 1).long()]
-        min_d = max_d / self.scale_factors[-1]
+        lo, hi = self._point_ranges(torch.linalg.norm(r2v, dim=-1), cur.level[idx])
         m, slots = insert_points(
             self.map, X, cur.desc[idx], 1, good,  # keyframe 1 is their reference
-            r2v / torch.clamp(torch.linalg.norm(r2v, dim=-1, keepdim=True), min=1e-9),
-            0.8 * min_d, 1.2 * max_d)
+            r2v / torch.clamp(torch.linalg.norm(r2v, dim=-1, keepdim=True), min=1e-9), lo, hi)
         obs0 = torch.where(good, slots, -1).to(torch.int32)
         # Keyframe 1's table runs over its own keypoints: scatter through idx.
         obs1 = torch.full((N,), -1, dtype=torch.int32, device=dev)
@@ -389,6 +407,8 @@ class Tracker:
         """The steady-state frame: the fused step (from the image when `img`
         is given) and one packed fetch. A motion-model estimate that
         TrackLocalMap rejects is retried through the reference keyframe."""
+        if self.localization_mode and self._depth_mode:
+            return self._track_frame_localization(feats, frame_id)
         cfg = self.cfg
         dev = self.device
         thr = self._accept_thr(frame_id)
@@ -407,9 +427,9 @@ class Tracker:
             else:
                 out = steps.fused_track_frame(
                     cfg.cam, self.map, self._last_feats, self._last_obs, self._last_R,
-                    self._last_t, vel_R, vel_t, has_vel, feats, ref, self.inv_sigma2, 0.0,
-                    float(thr), scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
-                    **common)
+                    self._last_t, vel_R, vel_t, has_vel, feats, ref, self.inv_sigma2,
+                    self._th_depth, float(thr), scale_factor=cfg.orb.scale_factor,
+                    n_levels=cfg.orb.n_levels, depth=self._depth_mode, **common)
         R, t, obs, vel_R2, vel_t2, pt_visible, pt_found, packed = out
         self.stats["dispatches"] += 1
         with self.metrics.stage("track.fetch"):
@@ -450,7 +470,8 @@ class Tracker:
             ok, R2, t2, obs2 = self._ref_kf_estimate(feats)
             if ok:
                 R, t, obs, n_inl, visible, found = self._track_local_map(self.map, R2, t2, feats, obs2)
-                g = steps.keyframe_gates(self.map, ref, feats, obs, 0.0)
+                g = steps.keyframe_gates(self.map, ref, feats, obs, self._th_depth,
+                                         depth=self._depth_mode)
                 packed2 = self._fetch(n_inl, *g)
                 n_tracked = int(packed2[0])
                 if n_tracked >= thr:
@@ -470,11 +491,16 @@ class Tracker:
         return False
 
     def _need_new_keyframe(self, n_tracked: int, frame_id: int, gates) -> bool:
-        """NeedNewKeyFrame for a monocular map with synchronous mapping (the
-        mapping-idle condition always holds): not right after a
-        relocalization on an established map; then the cadence (kf_max_frames
-        or kf_min_frames) and the reference ratio (0.4 below two keyframes,
-        else kf_ref_ratio) with more than 15 tracked points. `gates` is the
+        """NeedNewKeyFrame with synchronous mapping, so LocalMapping is
+        always idle (the reference's c1b holds whenever kf_min_frames have
+        passed, and nothing is ever interrupted): not right after a
+        relocalization on an established map; then the cadence (c1a
+        kf_max_frames, c1b kf_min_frames) or, for a depth sensor, weak
+        tracking (c1c: under a quarter of the reference's points, or the
+        close-point pressure need_close: < 100 close points tracked and > 70
+        untracked), and the reference ratio (0.4 below two keyframes, else
+        kf_ref_ratio, or kf_ref_ratio_depth for a depth sensor) or
+        need_close, with more than 15 tracked points. `gates` is the
         keyframe_gates pack, already on the host."""
         cfg = self.cfg
         if self.localization_mode:
@@ -483,10 +509,17 @@ class Tracker:
         if frame_id < self._last_reloc_frame_id + cfg.kf_max_frames and n_kf > cfg.kf_max_frames:
             return False
         ref_matches = int(gates[1])
-        th_ref = 0.4 if n_kf < 2 else cfg.kf_ref_ratio
-        c1 = self._frames_since_kf >= cfg.kf_max_frames or self._frames_since_kf >= cfg.kf_min_frames
-        c2 = n_tracked < th_ref * ref_matches and n_tracked > 15
-        return c1 and c2
+        depth = self._depth_mode
+        need_close = depth and gates[2] < 100 and gates[3] > 70
+        if n_kf < 2:
+            th_ref = 0.4
+        else:
+            th_ref = cfg.kf_ref_ratio_depth if depth else cfg.kf_ref_ratio
+        c1a = self._frames_since_kf >= cfg.kf_max_frames
+        c1b = self._frames_since_kf >= cfg.kf_min_frames
+        c1c = depth and (n_tracked < 0.25 * ref_matches or need_close)
+        c2 = (n_tracked < th_ref * ref_matches or need_close) and n_tracked > 15
+        return bool((c1a or c1b or c1c) and c2)
 
     # ------------------------------------------------- keyframes and slots
 
@@ -504,6 +537,8 @@ class Tracker:
         m, _ = insert_keyframe(self.map, feats, R, t, frame_id, obs, slot=slot)
         if slot is None:
             self._n_kf_host += 1
+        if self._depth_mode:
+            m = self._add_depth_points(m, ki, feats, R, t)
         self.metrics.inc("frames.keyframe")
         self.map = self._mapping_compute(m, ki)
         self._apply_pt_remap()
@@ -607,11 +642,14 @@ class Tracker:
         cfg = self.cfg
         if int(m.n_pt) >= int(0.95 * m.capacity_pt):
             m, self._pending_pt_remap = compact_point_slots(m)
+        # Neighbours and the culling's observation bar: 10 and 2 for a depth
+        # sensor, 20 and 3 for a monocular map.
+        nn_auto = 10 if self._depth_mode else 20
         with self._stage("map.front"):
             m = steps.mapping_front(
-                cfg.cam, m, ki, self.inv_sigma2, 3.0,
+                cfg.cam, m, ki, self.inv_sigma2, 2.0 if self._depth_mode else 3.0,
                 scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
-                nn_tri=cfg.tri_neighbors or 20, nn_fuse=cfg.fuse_neighbors or 20,
+                nn_tri=cfg.tri_neighbors or nn_auto, nn_fuse=cfg.fuse_neighbors or nn_auto,
                 fuse_hop=cfg.fuse_second_hop, window=cfg.local_ba_window)
         with self._stage("map.local_ba1"):
             m = self._local_ba(m, ki, iters=4)
@@ -673,6 +711,192 @@ class Tracker:
         self._last_reloc_frame_id = frame_id
         return True
 
+    # ------------------------------------------ localization-mode tracking
+
+    def _track_frame_localization(self, feats: FrameFeatures, frame_id: int) -> bool:
+        """Localization-only tracking of a depth sensor's frame with temporal
+        visual-odometry points (Tracking.cc:343-421): the motion model
+        tracks the last frame's map points and, where it holds none, the VO
+        points made from its close depths; while the last frame tracked
+        mostly VO points (mbVO) relocalization also runs, and wins when it
+        succeeds. TrackLocalMap runs only outside mbVO."""
+        cfg = self.cfg
+        m = self.map
+        last = self._last_feats
+        tag0 = self._last_obs
+        has_map = (tag0 >= 0) & last.valid & m.pt_valid[tag0.clamp(min=0).long()]
+        xyz = m.pt_xyz[tag0.clamp(min=0).long()]
+        tags = torch.where(has_map, tag0, -1)
+        has = has_map
+        if self._vo_xyz is not None:
+            vo = self._vo_valid & ~has_map & last.valid
+            xyz = torch.where(vo[:, None], self._vo_xyz, xyz)
+            has = has_map | vo
+
+        def run_motion_model():
+            R_pred, t_pred = self._predict_pose()
+            for th in (7.0, 14.0):
+                R, t, ct, cx, n_map, n_tot, n_m = steps.track_motion_model_pts(
+                    cfg.cam, last, xyz, tags, has, R_pred, t_pred, feats, self.inv_sigma2,
+                    scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels, th=th)
+                n_m, n_tot, n_map = self._fetch(n_m, n_tot, n_map)
+                # >= 20 matches before the optimization, > 20 map + VO inliers.
+                if n_m >= 20 and n_tot > 20:
+                    return R, t, ct, cx, int(n_map)
+            return None
+
+        mm = None
+        used_reloc = False
+        if not self._vo_mode:
+            mm = run_motion_model() if self._velocity is not None else None
+            if mm is None and self._last_kf_idx >= 0:
+                R, t, obs, n_matches, n_inl = steps.track_reference_keyframe(
+                    cfg.cam, m, self._last_kf_idx, feats, self._last_R, self._last_t,
+                    self.inv_sigma2)
+                n_matches, n_inl = self._fetch(n_matches, n_inl)
+                if n_matches >= 15 and n_inl >= 10:
+                    ct = torch.where(obs >= 0, obs, -2)
+                    cx = torch.where((obs >= 0)[:, None], m.pt_xyz[obs.clamp(min=0).long()], 0.0)
+                    mm = (R, t, ct, cx, int(n_inl))
+        else:
+            # mbVO: the motion model and relocalization both; relocalization wins.
+            mm = run_motion_model() if self._velocity is not None else None
+            with self._stage("track.relocalize"):
+                used_reloc = self._relocalize(feats, frame_id)
+            if used_reloc:
+                self._vo_mode = False
+        if not used_reloc and mm is None:
+            return False
+
+        if used_reloc:
+            # _relocalize polished the pose with TrackLocalMap and set the
+            # frame state; only the VO bookkeeping is left.
+            R, t = self._last_R, self._last_t
+            cur_tag = torch.where(self._last_obs >= 0, self._last_obs, -2)
+            cur_xyz = torch.zeros((feats.xy.shape[0], 3), device=self.device)
+            self._record_pose(frame_id, R, t)
+        else:
+            R, t, cur_tag, cur_xyz, n_map = mm
+            self._vo_mode = n_map < 10
+            if not self._vo_mode:
+                # TrackLocalMap over the frozen map; VO matches stay out of it.
+                obs_map = torch.where(cur_tag >= 0, cur_tag, -1)
+                R, t, obs_map, n_inl, visible, found = self._track_local_map(m, R, t, feats, obs_map)
+                if int(n_inl) < cfg.min_inliers_ok:
+                    return False
+                self.map = self.map._replace(
+                    pt_visible=self.map.pt_visible + visible.to(torch.float32),
+                    pt_found=self.map.pt_found + found.to(torch.float32))
+                cur_tag = torch.where(obs_map >= 0, obs_map, torch.where(cur_tag == -1, -1, -2))
+            self._velocity = se3_compose(R, t, *se3_inverse(self._last_R, self._last_t))
+            self._last_R, self._last_t = R, t
+            self._last_feats = feats
+            self._last_obs = torch.where(cur_tag >= 0, cur_tag, -1).to(torch.int32)
+            self._record_pose(frame_id, R, t)
+        self._frames_since_kf += 1
+        self._update_vo_points(feats, cur_tag, cur_xyz, R, t)
+        return True
+
+    def _update_vo_points(self, feats: FrameFeatures, cur_tag, cur_xyz, R, t):
+        """The next frame's VO points (Tracking::UpdateLastFrame): the
+        keypoints with depth that track no map point, every one closer than
+        th_depth and the 100 nearest in any case, unprojected into the world;
+        a carried VO match (tag -1) keeps its position."""
+        d = feats.depth
+        has_d = (d > 0) & feats.valid
+        order_d = torch.where(has_d, d, float("inf"))
+        # The rank of each depth, ties by index (jnp.argsort is stable).
+        rank = torch.argsort(torch.argsort(order_d, stable=True), stable=True)
+        create = has_d & (cur_tag < 0) & ((d < self._th_depth) | (rank < 100))
+        Xw = se3_apply(*se3_inverse(R, t), unproject(self.cfg.cam, feats.xy, d))
+        carried = cur_tag == -1
+        self._vo_xyz = torch.where(carried[:, None], cur_xyz, Xw)
+        self._vo_valid = carried | create
+
+    # ------------------------------------------------- stereo / RGB-D input
+
+    @property
+    def _th_depth(self) -> float:
+        """The close/far depth threshold: th_depth_factor baselines."""
+        return self.cfg.th_depth_factor * self.cfg.cam.baseline
+
+    def _frame_features_stereo(self, img_left: torch.Tensor, img_right: torch.Tensor) -> FrameFeatures:
+        c = self.cfg.cam
+        return steps.stereo_frame_features(img_left, img_right, self.cfg.orb, c.fx, c.bf)
+
+    def _frame_features_rgbd(self, img: torch.Tensor, depth_map: torch.Tensor) -> FrameFeatures:
+        """Frame::ComputeStereoFromRGBD: the depth image (scaled by
+        depth_map_factor) at each keypoint's raw, distorted position, and
+        the virtual right coordinate from the undistorted one. One
+        extraction gives both positions."""
+        f = extract_orb(img, self.cfg.orb)
+        feats = self._mono_features(f)
+        c = self.cfg.cam
+        H, W = depth_map.shape
+        xs = torch.clamp(torch.round(f.xy[:, 0]).long(), 0, W - 1)
+        ys = torch.clamp(torch.round(f.xy[:, 1]).long(), 0, H - 1)
+        d = depth_map[ys, xs] * self.cfg.depth_map_factor
+        has_d = (d > 0) & feats.valid
+        # float32(bf) / d, a true division, as the JAX package divides.
+        ur = feats.xy[:, 0] - torch.full_like(d, c.bf) / torch.clamp(d, min=1e-6)
+        return feats._replace(u_right=torch.where(has_d, ur, -1.0),
+                              depth=torch.where(has_d, d, 0.0))
+
+    def _point_ranges(self, dist: torch.Tensor, level: torch.Tensor):
+        """MapPoint::UpdateNormalAndDepth's scale-invariance range (the
+        creation's 0.8 / 1.2 margins applied) at distance `dist` seen at
+        octave `level`."""
+        sf = self.scale_factors[torch.clamp(level, 0, self.cfg.orb.n_levels - 1).long()]
+        max_d = dist * sf
+        min_d = max_d / self.scale_factors[-1]
+        return 0.8 * min_d, 1.2 * max_d
+
+    def _initialize_with_depth(self, feats: FrameFeatures, frame_id: int) -> bool:
+        """StereoInitialization: one keyframe at the origin, a map point
+        unprojected from every keypoint with depth. Needs half the feature
+        budget in valid keypoints (the reference's 500 of 1000), and 50 of
+        them with depth, so an empty map never enters OK."""
+        has_d = (feats.depth > 0) & feats.valid
+        n_valid, n_depth = self._fetch(feats.valid.sum(), has_d.sum())
+        if n_valid < max(self.cfg.orb.n_features // 2, 50) or n_depth < 50:
+            return False
+        X = unproject(self.cfg.cam, feats.xy, feats.depth)  # camera frame = world
+        n = feats.xy.shape[0]
+        normal = X / torch.clamp(torch.linalg.norm(X, dim=-1, keepdim=True), min=1e-9)
+        lo, hi = self._point_ranges(torch.linalg.norm(X, dim=-1), feats.level)
+        m, slots = insert_points(self.map, X, feats.desc, 0, has_d, normal, lo, hi)
+        obs = torch.where(has_d, slots, -1).to(torch.int32)
+        obs_p = torch.cat([obs, obs.new_full((self.kp_capacity - n,), -1)])
+        eye, zero = torch.eye(3, device=self.device), torch.zeros(3, device=self.device)
+        m, _ = insert_keyframe(m, self._pad_feats(feats), eye, zero, frame_id, obs_p)
+        self.map = update_point_normals(m, self.scale_factors)
+        self._depth_mode = True
+        self.state = TrackingState.OK
+        self._last_feats = feats
+        self._last_obs = obs
+        self._last_R, self._last_t = eye, zero
+        self._velocity = None
+        self._last_kf_idx = 0
+        self._frames_since_kf = 0
+        self._n_kf_host = 1
+        self._record_pose(frame_id, eye, zero)
+        return True
+
+    def _add_depth_points(self, m: MapState, ki: int, feats_p: FrameFeatures, R, t) -> MapState:
+        """Tracking::CreateNewKeyFrame's densification: a map point for each
+        of keyframe ki's untracked keypoints closer than th_depth."""
+        obs_kf = m.kf_obs_pt[ki]
+        d = feats_p.depth
+        free = (obs_kf < 0) & feats_p.valid & (d > 0) & (d < self._th_depth)
+        Xc = unproject(self.cfg.cam, feats_p.xy, d)
+        Xw = se3_apply(*se3_inverse(R, t), Xc)
+        vecs = Xw - (-(R.T @ t))
+        normal = vecs / torch.clamp(torch.linalg.norm(vecs, dim=-1, keepdim=True), min=1e-9)
+        lo, hi = self._point_ranges(torch.linalg.norm(Xc, dim=-1), feats_p.level)
+        m, slots = insert_points(m, Xw, feats_p.desc, ki, free, normal, lo, hi)
+        new_obs = torch.where(free & (slots >= 0), slots, obs_kf).to(m.kf_obs_pt.dtype)
+        return m._replace(kf_obs_pt=_set(m.kf_obs_pt, ki, new_obs))
+
     def reset(self):
         """Clear the map and restart at NO_IMAGES_YET (System::Reset)."""
         self.map = self._empty_map()
@@ -687,7 +911,7 @@ class Tracker:
         """The current T_cw on the host, from the packed fetch when fresh."""
         if self._last_pose_np is not None:
             return tuple(np.asarray(x) for x in self._last_pose_np)
-        return self._last_R.cpu().numpy(), self._last_t.cpu().numpy()
+        return self._pose_np(self._last_R, self._last_t)
 
     def track_monocular(self, img: torch.Tensor, frame_id: int):
         """One (H, W) float32 grayscale frame on the tracker's device;
@@ -733,14 +957,37 @@ class Tracker:
         self._record_pose(frame_id, self._last_R, self._last_t, lost=True)
         return None
 
-    def track_stereo(self, img_left, img_right, frame_id: int):
-        raise NotImplementedError("not ported yet: stereo input (ROADMAP A9)")
+    def track_stereo(self, img_left: torch.Tensor, img_right: torch.Tensor, frame_id: int):
+        """One rectified pair of (H, W) float32 images on the tracker's
+        device; returns T_cw (R, t) as numpy, or None."""
+        with self._stage("track.stereo_features"):
+            feats = self._frame_features_stereo(img_left, img_right)
+        return self._track_with_depth(feats, frame_id)
 
-    def track_rgbd(self, img, depth_map, frame_id: int):
-        raise NotImplementedError("not ported yet: RGB-D input (ROADMAP A9)")
+    def track_rgbd(self, img: torch.Tensor, depth_map: torch.Tensor, frame_id: int):
+        """One (H, W) float32 image and its registered (H, W) float32 depth
+        image (raw units, times depth_map_factor gives metres) on the
+        tracker's device; returns T_cw (R, t) as numpy, or None."""
+        with self._stage("track.rgbd_features"):
+            feats = self._frame_features_rgbd(img, depth_map)
+        return self._track_with_depth(feats, frame_id)
 
     def track_depth_features(self, feats: FrameFeatures, frame_id: int):
-        raise NotImplementedError("not ported yet: stereo and RGB-D input (ROADMAP A9)")
+        """Stereo / RGB-D tracking over precomputed FrameFeatures with
+        u_right and depth filled (the multi-stream front end's entry)."""
+        return self._track_with_depth(feats, frame_id)
+
+    def _track_with_depth(self, feats: FrameFeatures, frame_id: int):
+        self.n_frames += 1
+        self._last_pose_np = None
+        if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
+            self.state = TrackingState.NOT_INITIALIZED
+            if self._initialize_with_depth(feats, frame_id):
+                return self._pose_out()
+            return None
+        if self.state == TrackingState.OK:
+            return self._after_ok_track(self._track_frame(feats, frame_id), frame_id)
+        return self._lost_track(feats, frame_id)
 
     def shutdown(self):
         """Mapping runs synchronously: nothing is in flight."""

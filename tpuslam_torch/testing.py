@@ -1,8 +1,10 @@
 """Synthetic scenes without jax: a numpy copy of tests/synthetic.py's
 make_texture, StepWallScene and orbit_trajectory (blur and rotations from
 this package), the inputs of a coherent tracking step, a tracking session
-over a real MapState (build_depth_session), and a monocular System session
-over rendered frames with its ATE (mono_session, trajectory_ate).
+over a real MapState (build_depth_session), rendered monocular, stereo and
+RGB-D frames (render_frames, render_stereo_frames, render_rgbd_frames), a
+System session over them (mono_session, depth_session) and its ATE after a
+Sim3 or a rigid alignment (trajectory_ate).
 
 A coherent step: the keypoints of a frame rendered at pose A, back-projected
 through A's depth image, are both the last frame's points and the first
@@ -402,11 +404,30 @@ def render_frames(scene: StepWallScene, cam: PinholeCamera, poses, device="cpu")
     return [scene.render(cam, R, t, device=device).to(torch.float32) for R, t in poses]
 
 
-def mono_session(system, frames, on_frame=None) -> list:
-    """Feed `system.track_monocular` the images `frames`, timestamps i / 30
-    s. Returns one (T_cw or None, ms) per frame: the call's wall time, the
-    card synchronized before and after it. on_frame(i, out) runs after each
-    frame."""
+def render_stereo_frames(scene: StepWallScene, cam: PinholeCamera, poses, device="cpu") -> list:
+    """(left, right) (H, W) float32 image pairs of `scene` on `device`: the
+    right camera is the left one moved by the baseline bf / fx along its
+    own x axis (a rectified pair)."""
+    shift = np.array([cam.baseline, 0.0, 0.0], np.float32)
+    return [(scene.render(cam, R, t, device=device).to(torch.float32),
+             scene.render(cam, R, np.asarray(t, np.float32) - shift, device=device).to(torch.float32))
+            for R, t in poses]
+
+
+def render_rgbd_frames(scene: StepWallScene, cam: PinholeCamera, poses, device="cpu",
+                       depth_scale: float = 5000.0) -> list:
+    """(image, depth) pairs of `scene`: the (H, W) float32 image on
+    `device`, and the depth as a dataset stores it, an (H, W) uint16 numpy
+    array of depth_scale units per metre (TUM's 5000; 0 = no depth)."""
+    out = []
+    for R, t in poses:
+        img, z = scene.render(cam, R, t, with_depth=True, device=device)
+        raw = torch.clamp(torch.round(z.to(torch.float64) * depth_scale), 0, 65535)
+        out.append((img.to(torch.float32), raw.cpu().numpy().astype(np.uint16)))
+    return out
+
+
+def _timed_session(system, track, frames, on_frame) -> list:
     import time
 
     def sync():
@@ -414,15 +435,31 @@ def mono_session(system, frames, on_frame=None) -> list:
             torch.cuda.synchronize(system.tracker.device)
 
     res = []
-    for i, img in enumerate(frames):
+    for i, args in enumerate(frames):
         sync()
         t0 = time.perf_counter()
-        out = system.track_monocular(img, i / 30.0)
+        out = track(*args, i / 30.0)
         sync()
         res.append((out, (time.perf_counter() - t0) * 1e3))
         if on_frame is not None:
             on_frame(i, out)
     return res
+
+
+def mono_session(system, frames, on_frame=None) -> list:
+    """Feed `system.track_monocular` the images `frames`, timestamps i / 30
+    s. Returns one (T_cw or None, ms) per frame: the call's wall time, the
+    card synchronized before and after it. on_frame(i, out) runs after each
+    frame."""
+    return _timed_session(system, system.track_monocular, [(f,) for f in frames], on_frame)
+
+
+def depth_session(system, frames, on_frame=None) -> list:
+    """mono_session for a stereo System (`frames` of (left, right) pairs,
+    through track_stereo) or an RGB-D one ((image, depth) pairs, through
+    track_rgbd)."""
+    track = system.track_stereo if system.sensor.name == "STEREO" else system.track_rgbd
+    return _timed_session(system, track, frames, on_frame)
 
 
 def keep_mapping_inputs(tracker, jobs=None) -> dict:
@@ -444,11 +481,12 @@ def keep_mapping_inputs(tracker, jobs=None) -> dict:
     return kept
 
 
-def trajectory_ate(trajectory, poses):
+def trajectory_ate(trajectory, poses, fix_scale: bool = False):
     """The ATE of an exported trajectory ((frame_id, R, t, lost) tuples)
     against the ground-truth `poses`: camera centres of the tracked frames,
-    Sim3-aligned (horn_sim3, the monocular scale is free). Returns (ATE
-    RMSE, number of frames, (s, R, t) of the alignment)."""
+    Sim3-aligned (horn_sim3: the monocular scale is free), or rigidly (SE3,
+    scale 1) with fix_scale for a depth sensor's metric trajectory. Returns
+    (ATE RMSE, number of frames, (s, R, t) of the alignment)."""
     from tpuslam_torch.sfm.sim3solver import horn_sim3
 
     est, gt = [], []
@@ -460,7 +498,8 @@ def trajectory_ate(trajectory, poses):
         gt.append(-np.asarray(Rg).T @ np.asarray(tg))
     est = np.asarray(est, np.float32)
     gt = np.asarray(gt, np.float32)
-    s, R, t = horn_sim3(torch.from_numpy(est), torch.from_numpy(gt), torch.ones(len(est)))
+    s, R, t = horn_sim3(torch.from_numpy(est), torch.from_numpy(gt), torch.ones(len(est)),
+                        fix_scale=fix_scale)
     aligned = float(s) * est @ R.numpy().T + t.numpy()
     ate = float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
     return ate, len(est), (float(s), R.numpy(), t.numpy())
