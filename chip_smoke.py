@@ -31,16 +31,21 @@ Phases, any failure exits non-zero:
      the verdict, and 0 on a reference-keyframe frame, or the run fails);
   6. mono SLAM: the port's System.track_monocular on the card at the
      tracker's default capacities (1536 keyframes, 2000 keypoint slots,
-     200,000 points), loop closing off, over 100 frames of the map slice's
+     200,000 points) and default TrackerConfig (loop closing on: the shipped
+     100k-word vocabulary, detection on every keyframe), over 100 frames of the map slice's
      trajectory: it must initialize within the first 10 frames, end OK,
      track >= 95% of the frames after initialization, hold >= 10 valid
      keyframes with points that mapping_front made, keep the Sim3-aligned
      ATE below 3% of the path's span, and launch both kernels on every
-     frame. Then, on the finished map: device->host reads of a motion-model
+     frame, and close no loop (the path revisits nothing); the loop stage's
+     ms and device->host reads per keyframe are printed. Then, on the
+     finished map: device->host reads of a motion-model
      and a reference-keyframe frame (<= 2 and <= 1, or the run fails) and of
      one keyframe job, that job (Tracker._mapping_compute on a mid-session
      snapshot) on the CPU against the card, and a forced LOST relocalized
-     from an earlier frame at its true place. Prints ms per frame by branch,
+     from an earlier frame at its true place through the BoW database's
+     keyframe candidates (the brute-force branch must not run; it is then
+     timed alone on the same frame for comparison). Prints ms per frame by branch,
      the keyframe frames split by stage, global BA, relocalization, the
      peak memory allocated (the session, one frame, one keyframe job and
      its stages, the relocalization) and a profile of the keyframe job and
@@ -50,11 +55,12 @@ Phases, any failure exits non-zero:
      atlas at the describe and at the SAD windows, each torch.equal to its
      plain version, then timed as in phase 5;
   stereo SLAM: System.track_stereo at KITTI00-02.yaml's operating point
-     (1241x376, 2000 features, ThDepth 35, kf_max_frames 10) at the default
-     capacities over 60 rectified pairs of a 4x-scale StepWallScene, the
+     (1241x376, 2000 features, ThDepth 35, kf_max_frames 10, loop closing
+     on) at the default capacities over 60 rectified pairs of a 4x-scale StepWallScene, the
      right image rendered 0.537 m along the camera's x axis: initialized on
      the first frame, OK at the end, >= 95% tracked, the span within 5% and
-     the rigid ATE below 3% of it, both kernels on every frame. Prints ms per
+     the rigid ATE below 3% of it, both kernels on every frame, no loop
+     closed (the loop stage's ms and reads per keyframe printed). Prints ms per
      frame by kind (the keyframe frames split into the stereo front end,
      mapping_front, the local-BA chunks and the rest), the front end alone
      (it must make no device->host read), reads by frame kind, peak memory,
@@ -68,7 +74,34 @@ Phases, any failure exits non-zero:
      the same gates and prints;
   MultiTracker: track_stereo over 2 KITTI-sized streams for 12 frames, one
      FAST+NMS launch per batched extraction of the 4 images, every frame of
-     every stream tracked within the stereo gates.
+     every stream tracked within the stereo gates (RGB-D and MultiTracker
+     keep loop closing off, so the phases stay inside the time limit);
+  place: the shipped 100k-word (k=10, L=5) and 1M-word (k=10, L=6)
+     vocabularies on the card; view A of each of the 260 places of
+     tpuslam/data/place_eval.npz enrolled in a SparseKeyFrameDatabase, view B
+     queried (place/evaluate.py, the port's copy of
+     tools/eval_place_recognition.py): the 100k tree must reach recall@1
+     >= 0.85, recall@5 >= 0.92 and a positive mean margin
+     (tests/test_place_scale.py's gates); the 1M tree's are reported. Prints
+     ms per sparse_bow_vector of 1,000 and 2,000 descriptors for each tree
+     and ms per query at 1,536 enrolled slots;
+  loop: LoopCloser.on_keyframe on every keyframe of testing.build_loop_map
+     at the tracker's default capacities (1536 keyframes, 2000 keypoint
+     slots, 200,000 points): 240 keyframes on the circle, the last 3
+     revisiting clusters 0 and 1, the shipped 100k vocabulary, the port's
+     global BA after a closure. 240 live keyframes take the essential graph
+     through the block-Jacobi CG over all 1536 slots. The drift per
+     keyframe is the 16-keyframe test map's total (16 x 1.2%) spread over
+     the 240 keyframes: at 1.2% per keyframe the 240-keyframe loop drifts
+     2.9 rad, which the odometric gate rightly vetoes. At least one loop
+     must close, the loop end's camera-centre error after the correction
+     must be below half of that before, a 64-keyframe map without revisit
+     or drift must close none, and the closing keyframe rerun on the CPU
+     from the card's state just before it must pick the same candidate and
+     land within 1 cm and 0.1 deg of the card's corrected poses. Prints ms
+     per keyframe without a candidate, the closing keyframe by stage (Sim3,
+     fusion, essential graph with its GN and CG iterations and launches,
+     global BA), reads per keyframe and peak memory.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} (the launches of every phase's main-path run, and the
 stereo shapes' times); the last is {"ok": true, "device": {...}}.
@@ -109,16 +142,27 @@ from tpuslam_torch.ops.stereo import (
     sad_windows,
     stereo_match_atlas,
 )
-from tpuslam_torch.pipeline import steps
+from tpuslam_torch.pipeline import loop_closing, steps
+from tpuslam_torch.pipeline.loop_closing import LoopCloser
 from tpuslam_torch.pipeline.multi import MultiTracker
 from tpuslam_torch.pipeline.steps import fused_track_frame_image, local_keyframe_mask
 from tpuslam_torch.pipeline.system import SensorType, System
 from tpuslam_torch.pipeline.track_step import track_step_batched
+from tpuslam_torch.place.database import SparseKeyFrameDatabase
+from tpuslam_torch.place.evaluate import PLACE_EVAL_PATH, evaluate
+from tpuslam_torch.place.vocabulary import (
+    DEFAULT_VOCAB_1M_PATH,
+    DEFAULT_VOCAB_PATH,
+    Vocabulary,
+    sparse_bow_vector,
+)
 from tpuslam_torch.pipeline.tracker import Tracker, TrackerConfig, TrackingState
 from tpuslam_torch.testing import (
+    LOOP_CAM,
     TRACK_STEP_ARGS,
     StepWallScene,
     build_depth_session,
+    build_loop_map,
     coherent_track_inputs,
     depth_session,
     keep_mapping_inputs,
@@ -173,7 +217,8 @@ MONO_SNAP_JOB, MONO_RELOC_FRAME = 10, 50
 KITTI_CAM = PinholeCamera(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
                           width=1241, height=376)
 KITTI_ORB = ORBConfig(n_features=2000)
-STEREO_TRACKER = dict(th_depth_factor=35.0, kf_max_frames=10, enable_loop_closing=False)
+STEREO_TRACKER = dict(th_depth_factor=35.0, kf_max_frames=10)
+MULTI_TRACKER = dict(STEREO_TRACKER, enable_loop_closing=False)
 TUM_CAM = PinholeCamera(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989, bf=40.0,
                         width=640, height=480)
 TUM_ORB = ORBConfig(n_features=1000)
@@ -195,6 +240,12 @@ DEPTH_TRACKED, DEPTH_SPAN_TOL, DEPTH_ATE_SHARE = 0.95, 0.05, 0.03
 LOC_FRAMES, LOC_TRACKED = 20, 0.75  # localization mode past the mapped region
 MULTI_B, MULTI_FRAMES = 2, 12
 MULTI_POSES = [dict(step=0.4, yaw_rate=0.002, x0=-16.0), dict(step=0.4, yaw_rate=-0.002, x0=-10.0)]
+# Place recognition: tests/test_place_scale.py's gates on the 100k tree.
+PLACE_R1, PLACE_R5 = 0.85, 0.92
+# The loop map (testing.build_loop_map) at the default capacities.
+LOOP_KF, LOOP_NO_REVISIT_KF = 240, 64
+LOOP_DRIFT = 0.012 * 16 / LOOP_KF
+LOOP_T_TOL, LOOP_R_TOL = 0.01, 0.1  # card against CPU on the closing keyframe (m, deg)
 INT_FIELDS = [steps.FUSED_ACCEPT, steps.FUSED_INITIAL_OK, steps.FUSED_USED_MM,
               steps.FUSED_N_TRACKED, *range(steps.FUSED_GATES, steps.FUSED_GATES + 4),
               steps.FUSED_NM]
@@ -623,15 +674,53 @@ def frame_kinds(rec: list, counters0=None) -> list:
     return kinds
 
 
+def watch_loop_stage(tr) -> list:
+    """Wrap the tracker's loop-closing hand-off so each keyframe's
+    device->host reads in it (count_syncs) append to the returned list."""
+    reads = []
+    orig = tr._close_loops
+
+    def wrapped(m, ki):
+        out, sites = count_syncs(lambda: orig(m, ki))
+        reads.append(sites)
+        return out
+
+    tr._close_loops = wrapped
+    return reads
+
+
+def loop_stage_report(name: str, tr, reads: list, smi: str) -> list:
+    """Print the session's loop stage (ms and reads per keyframe); the
+    failures: a keyframe job without it, or a loop closed on a path that
+    revisits nothing."""
+    st = tr.metrics.timer.samples
+    loop_ms = [v * 1e3 for v in st.get("map.loop", [])]
+    det_ms = [v * 1e3 for v in st.get("loop.detect", [])]
+    n = [len(x) for x in reads]
+    lc = tr.loop_closer
+    log(f"  {name} loop stage on {smi} (default TrackerConfig, loop closing on, "
+        f"{lc.voc.n_words if lc.voc is not None else 0} words): {_ms(loop_ms)} per keyframe, of which "
+        f"detection {_ms(det_ms)}; device->host reads per keyframe median "
+        f"{statistics.median(n) if n else 0}, max {max(n) if n else 0} (the last keyframe's at "
+        f"{reads[-1] if reads else []}); loops closed {lc.n_loops_closed}")
+    bad = []
+    if len(loop_ms) != tr.metrics.counters["frames.keyframe"] or not loop_ms:
+        bad.append(f"{name}: {len(loop_ms)} loop stages for {tr.metrics.counters['frames.keyframe']} keyframes")
+    if lc.n_loops_closed:
+        bad.append(f"{name}: {lc.n_loops_closed} loops closed on a path that revisits nothing")
+    return bad
+
+
 def phase_mono(scene: StepWallScene, smi: str) -> dict:
     """Mono SLAM through the port's System at the default capacities (see
     the module docstring). Returns the kernels' launches in the session."""
     poses = orbit_trajectory(MONO_FRAMES + 3, **MAP_POSES)
     frames = render_frames(scene, CAM, poses, device="cuda")
-    system = System(CAM, orb=CFG, device="cuda", enable_loop_closing=False)
+    system = System(CAM, orb=CFG, device="cuda")  # the default TrackerConfig: loop closing on
     tr = system.tracker
     tr.stage_sync = True  # the stage timers hold device time
     kept = keep_mapping_inputs(tr, jobs={MONO_SNAP_JOB})
+    loop_reads = watch_loop_stage(tr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fast_nms.launches = 0
@@ -680,15 +769,16 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     # Times by frame kind and stage (stage syncs on, so each is device time).
     st = tr.metrics.timer.samples
     kf_idx = [i for i, x in enumerate(kinds) if x["kind"] == "keyframe"]
-    front, ba1, ba2 = ([v * 1e3 for v in st.get(k, [])] for k in ("map.front", "map.local_ba1", "map.local_ba2"))
-    rest = [ms[i] - f - b1 - b2 for i, f, b1, b2 in zip(kf_idx, front, ba1, ba2)]
+    front, ba1, ba2, loop = ([v * 1e3 for v in st.get(k, [])]
+                             for k in ("map.front", "map.local_ba1", "map.local_ba2", "map.loop"))
+    rest = [ms[i] - f - b1 - b2 - lp for i, f, b1, b2, lp in zip(kf_idx, front, ba1, ba2, loop)]
     log(f"mono SLAM times on {smi} (medians over the session's frames):")
     for kind in ("motion model", "reference keyframe"):
         log(f"  tracking frame without a keyframe, {kind} branch: "
             f"{_ms([ms[i] for i, x in enumerate(kinds) if x['kind'] == kind])}")
     log(f"  keyframe frame: {_ms([ms[i] for i in kf_idx])}; of which mapping_front {_ms(front)}, "
-        f"local BA chunk 1 {_ms(ba1)}, chunk 2 {_ms(ba2)}, the rest (tracking step, insertion, "
-        f"normals) {_ms(rest)}")
+        f"local BA chunk 1 {_ms(ba1)}, chunk 2 {_ms(ba2)}, loop closing {_ms(loop)}, the rest "
+        f"(tracking step, insertion, normals) {_ms(rest)}")
     log(f"  initialization: two-view {_ms([v * 1e3 for v in st.get('init.two_view', [])])}, "
         f"global BA (20 LM iterations over {m.capacity_kf * m.kf_obs_pt.shape[1]} edge slots) "
         f"{_ms([v * 1e3 for v in st.get('init.global_ba', [])])}")
@@ -706,8 +796,10 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
         bad.append(f"ATE {ate:.4f} >= {MONO_ATE_SHARE:.0%} of {span:.3f}")
     if any(x["launches"][k] < 1 for x in kinds for k in launches):
         bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    bad += loop_stage_report("mono", tr, loop_reads, smi)
     if bad:
         raise AssertionError(f"mono SLAM: {bad}")
+    del tr._close_loops  # the instance's own method again
 
     # Reads per frame on the finished map (no keyframes: localization mode).
     tr.stage_sync = False
@@ -732,9 +824,14 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     if len(reads["motion model"]) > 2 or len(reads["reference keyframe"]) > 1:
         raise AssertionError(f"mono SLAM: too many reads per frame: {reads}")
 
-    # One keyframe job on the card and on the CPU from the same snapshot.
+    # One keyframe job on the card and on the CPU from the same snapshot,
+    # each with a fresh loop closer (the same vocabulary): the session's
+    # closer has seen later keyframes.
     m_snap, ki = kept[MONO_SNAP_JOB]
+    session_lc = tr.loop_closer
+    tr.loop_closer = tr._new_loop_closer(session_lc.voc)
     (out_gpu, sites), gib = peak_gib(lambda: count_syncs(lambda: tr._mapping_compute(m_snap, ki)))
+    tr.loop_closer = session_lc
     log(f"  device->host reads of the keyframe job of slot {ki}: {len(sites)}, at {sites}; "
         f"peak memory {gib:.3f} GiB")
     cfg = tr.cfg
@@ -746,6 +843,7 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     log(f"  its stages alone, peak memory: mapping_front {g_front:.3f} GiB, a local-BA chunk "
         f"{g_ba:.3f} GiB, update_point_normals {g_norm:.3f} GiB")
     tr_cpu = Tracker(tr.cfg, device="cpu")
+    tr_cpu.loop_closer.voc = session_lc.voc.to("cpu")
     t0 = time.perf_counter()
     out_cpu = tr_cpu._mapping_compute(map_to_torch(map_to_numpy(m_snap), "cpu"), ki)
     g = map_to_torch(map_to_numpy(out_gpu), "cpu")
@@ -761,24 +859,34 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     if not (torch.equal(g.kf_valid, v) and same_obs >= 0.995 and dR < POSE_TOL and dt < POSE_TOL):
         raise AssertionError("mono SLAM: the keyframe job differs on the card and the CPU")
 
+    tr.loop_closer = tr._new_loop_closer(session_lc.voc)
     wall, n_launch, dev_us, top = profile_call(lambda: tr._mapping_compute(m_snap, ki))
+    tr.loop_closer = session_lc
     log(f"  one profiled keyframe job: {n_launch} kernel launches, device time {dev_us / 1e3:.3f} ms "
         f"of {wall:.3f} ms wall under the profiler; most device time:")
     log_top(top)
 
-    # Forced LOST, then an earlier frame: relocalization.
+    # Forced LOST, then an earlier frame: relocalization through the BoW
+    # candidates, then the brute-force branch alone on the same frame.
+    feats = tr._frame_features(frames[MONO_RELOC_FRAME])
+    cands = tr._reloc_candidate_kfs(feats)
+    if not cands:
+        raise AssertionError("mono SLAM: no BoW relocalization candidates")
     tr.state = TrackingState.LOST
     tr._velocity = None
     out, reloc_gib = peak_gib(lambda: system.track_monocular(frames[MONO_RELOC_FRAME], 99.0))
     reloc_ms = tr.metrics.timer.samples["track.relocalize"][-1] * 1e3
     if out is None or tr.state != TrackingState.OK:
         raise AssertionError("mono SLAM: no relocalization after a forced LOST")
+    if tr.reloc_path != "bow":
+        raise AssertionError(f"mono SLAM: the relocalization took the {tr.reloc_path} branch")
     R, t = out
     Rg, tg = poses[MONO_RELOC_FRAME]
     err = float(np.linalg.norm(s * (-R.T @ t) @ Ra.T + ta - (-np.asarray(Rg).T @ np.asarray(tg))))
-    log(f"  relocalization of frame {MONO_RELOC_FRAME} after a forced LOST: {reloc_ms:.3f} ms "
-        f"(brute-force match over {m.capacity_pt} point slots, EPnP RANSAC, pose optimization, "
-        f"TrackLocalMap); aligned centre error {err:.4f} m; peak memory {reloc_gib:.3f} GiB")
+    log(f"  relocalization of frame {MONO_RELOC_FRAME} after a forced LOST: {reloc_ms:.3f} ms through "
+        f"the BoW candidates {cands} (their points matched, EPnP RANSAC, pose optimization, "
+        f"projective widening, TrackLocalMap); aligned centre error {err:.4f} m; peak memory "
+        f"{reloc_gib:.3f} GiB")
     if not err < MONO_ATE_SHARE * span:
         raise AssertionError(f"mono SLAM: relocalized {err:.4f} m from the truth")
     tr.state = TrackingState.LOST
@@ -786,8 +894,24 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
     log(f"  the same relocalization profiled: {n_launch} kernel launches, device time "
         f"{dev_us / 1e3:.3f} ms of {wall:.3f} ms wall under the profiler; most device time:")
     log_top(top)
-    if tr.state != TrackingState.OK:
+    if tr.state != TrackingState.OK or tr.reloc_path != "bow":
         raise AssertionError("mono SLAM: the profiled relocalization failed")
+    # The brute-force branch (every map point against the frame, the path
+    # without a database) on the same frame, for comparison.
+    tr._reloc_candidate_kfs = lambda f: None
+    try:
+        tr.state = TrackingState.LOST
+        system.track_monocular(frames[MONO_RELOC_FRAME], 99.0)
+        bf_ms = tr.metrics.timer.samples["track.relocalize"][-1] * 1e3
+        bf_ok = tr.state == TrackingState.OK and tr.reloc_path == "brute_force"
+        tr.state = TrackingState.LOST
+        wall_bf, n_bf, dev_bf, _ = profile_call(lambda: system.track_monocular(frames[MONO_RELOC_FRAME], 99.0))
+    finally:
+        del tr._reloc_candidate_kfs
+    log(f"  the brute-force branch alone on the same frame (match over {m.capacity_pt} point slots): "
+        f"{bf_ms:.3f} ms ({'relocalized' if bf_ok else 'FAILED'}); profiled: {n_bf} kernel launches, "
+        f"device time {dev_bf / 1e3:.3f} ms of {wall_bf:.3f} ms wall. BoW against brute force: "
+        f"{reloc_ms:.3f} against {bf_ms:.3f} ms, {n_launch} against {n_bf} launches")
     return launches
 
 
@@ -921,6 +1045,7 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
     fast_nms.launches = 0
     gather_patches.launches = 0
     rec = []
+    loop_reads = watch_loop_stage(tr) if tr.loop_closer is not None else None
     t0 = time.perf_counter()
     res = depth_session(system, frames[:DEPTH_FRAMES], on_frame=session_recorder(tr, rec))
     wall = time.perf_counter() - t0
@@ -943,7 +1068,8 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
     feat = [v * 1e3 for v in st[feat_stage]]
     kf_idx = [i for i, x in enumerate(kinds) if x["kind"] == "keyframe"]
     front, ba1, ba2 = ([v * 1e3 for v in st.get(k, [])] for k in ("map.front", "map.local_ba1", "map.local_ba2"))
-    rest = [ms[i] - feat[i] - f - b1 - b2 for i, f, b1, b2 in zip(kf_idx, front, ba1, ba2)]
+    loop = [v * 1e3 for v in st.get("map.loop", [])] or [0.0] * len(kf_idx)
+    rest = [ms[i] - feat[i] - f - b1 - b2 - lp for i, f, b1, b2, lp in zip(kf_idx, front, ba1, ba2, loop)]
     log(f"{name} SLAM times on {smi} (medians over the session's frames):")
     for kind in ("initialization", "motion model", "reference keyframe"):
         idx = [i for i, x in enumerate(kinds) if x["kind"] == kind]
@@ -951,7 +1077,11 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
             f"{_ms([feat[i] for i in idx])}")
     log(f"  keyframe frame: {_ms([ms[i] for i in kf_idx])}; of which the {name} front end "
         f"{_ms([feat[i] for i in kf_idx])}, mapping_front {_ms(front)}, local BA chunk 1 {_ms(ba1)}, "
-        f"chunk 2 {_ms(ba2)}, the rest (tracking step, insertion, densification, normals) {_ms(rest)}")
+        f"chunk 2 {_ms(ba2)}, loop closing {_ms(loop)}, the rest (tracking step, insertion, "
+        f"densification, normals) {_ms(rest)}")
+    if loop_reads is not None:
+        bad += loop_stage_report(name, tr, loop_reads, smi)
+        del tr._close_loops
     if kinds[0]["state"] != "OK":
         bad.append(f"{name}: not initialized on the first frame")
     if tr.state != TrackingState.OK:
@@ -1038,7 +1168,7 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
     stereo session's span and rigid-ATE gates. Returns its launches."""
     paths = [orbit_trajectory(MULTI_FRAMES, **p) for p in MULTI_POSES]
     frames = [render_stereo_frames(scene, KITTI_CAM, p, device="cuda") for p in paths]
-    mt = MultiTracker.uniform(TrackerConfig(cam=KITTI_CAM, orb=KITTI_ORB, **STEREO_TRACKER), MULTI_B,
+    mt = MultiTracker.uniform(TrackerConfig(cam=KITTI_CAM, orb=KITTI_ORB, **MULTI_TRACKER), MULTI_B,
                               device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1135,6 +1265,201 @@ def phase_rgbd(smi: str) -> dict:
     return phase_depth("rgbd", system, frames, poses, smi, front)
 
 
+def phase_place(smi: str, device: str = "cuda") -> dict:
+    """Place recognition with both shipped vocabularies on the card (see
+    the module docstring). Returns each tree's results and times."""
+    z = np.load(PLACE_EVAL_PATH)
+    pool = np.ascontiguousarray(z["view_a"][z["count_a"] >= 300].reshape(-1, 8)).view(np.int32)
+    descs = {n: torch.from_numpy(pool[:n].copy()).to(device) for n in (1000, 2000)}
+    ones = {n: torch.ones(n, dtype=torch.bool, device=device) for n in descs}
+    out = {}
+    for name, path in (("100k", DEFAULT_VOCAB_PATH), ("1M", DEFAULT_VOCAB_1M_PATH)):
+        t0 = time.perf_counter()
+        voc = Vocabulary.load(path, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = evaluate(voc, PLACE_EVAL_PATH)
+        eval_s = time.perf_counter() - t0
+        bow_ms = dict(zip(descs, cuda_ms_turns([lambda n=n: sparse_bow_vector(voc, descs[n], ones[n])
+                                                for n in descs])))
+        # A query against 1,536 enrolled slots of 2,000 words (64 distinct
+        # keyframes' vectors, tiled), no covisibility, as relocalization asks.
+        K, L = MAP["K"], MAP["N_cap"]
+        db = SparseKeyFrameDatabase(voc.n_words, K, L, device=device)
+        rows = []
+        for k in range(64):
+            d = torch.from_numpy(pool[(k * 997) % (len(pool) - L):][:L].copy()).to(device)
+            rows.append(sparse_bow_vector(voc, d, ones[L]))
+        for k in range(K):
+            db.add(k, rows[k % 64])
+        q = sparse_bow_vector(voc, torch.from_numpy(pool[-L:].copy()).to(device), ones[L])
+        excl = torch.zeros(K, dtype=torch.bool, device=device)
+        covis = torch.zeros((K, K), device=device)
+        q_ms = cuda_ms(lambda: db.query(q, excl, covis, min_score=0.0, max_candidates=6))
+        log(f"place recognition, {name} tree (k={voc.k}, L={voc.levels}, {voc.n_words} words) on {smi}: "
+            f"{res['n_places']} places, recall@1 {res['recall_at_1']:.4f}, recall@5 {res['recall_at_5']:.4f}, "
+            f"mean margin {res['mean_margin']:.4f} (load {load_s:.1f} s, evaluation {eval_s:.1f} s); "
+            f"sparse_bow_vector {bow_ms[1000]:.3f} ms at 1,000 descriptors, {bow_ms[2000]:.3f} ms at "
+            f"2,000; a query at {K} enrolled slots of {L} words {q_ms:.3f} ms (CUDA-event medians of {REPS})")
+        out[name] = dict(res, bow_ms=bow_ms, query_ms=q_ms)
+    r = out["100k"]
+    if not (r["recall_at_1"] >= PLACE_R1 and r["recall_at_5"] >= PLACE_R5 and r["mean_margin"] > 0.0):
+        raise AssertionError(f"place recognition: the 100k tree misses its gates: {r}")
+    return out
+
+
+def rotation_deg(Ra: np.ndarray, Rb: np.ndarray) -> np.ndarray:
+    """The angle between rotations (..., 3, 3) in degrees, from the chord
+    |Ra - Rb|_F = 2 sqrt(2) sin(theta / 2): exact for small angles, where
+    arccos of the trace loses them to the rotations' float32 rounding."""
+    chord = np.linalg.norm(Ra - Rb, axis=(-2, -1)) / (2.0 * np.sqrt(2.0))
+    return np.rad2deg(2.0 * np.arcsin(np.clip(chord, 0.0, 1.0)))
+
+
+def _kf_centres(m, n: int) -> np.ndarray:
+    R = m.kf_R[:n].cpu().numpy().astype(np.float64)
+    t = m.kf_t[:n].cpu().numpy().astype(np.float64)
+    return -np.einsum("kji,kj->ki", R, t)
+
+
+def phase_loop(smi: str, device: str = "cuda") -> dict:
+    """Loop closing on the drifted loop map at the default capacities (see
+    the module docstring)."""
+    K, N, P = MAP["K"], MAP["N_cap"], MAP["P"]
+    t0 = time.perf_counter()
+    m, gt, drifted = build_loop_map(np.random.default_rng(0), n_kf=LOOP_KF, drift=LOOP_DRIFT, max_kf=K,
+                                    n_kp=N, max_pt=P, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = TrackerConfig(cam=LOOP_CAM, max_keyframes=K, max_points=P, enable_loop_closing=False)
+    ba = Tracker(cfg, device=device)  # its global BA serves the closure
+    voc = Vocabulary.load(DEFAULT_VOCAB_PATH, device=device)
+    lc = LoopCloser(K, fix_scale=False, voc=voc)
+    lc.stage_sync = True
+    graphs = []
+    solve = loop_closing.optimize_pose_graph
+
+    def keep_graph(*a, **kw):
+        graphs.append((a, kw))
+        return solve(*a, **kw)
+
+    loop_closing.optimize_pose_graph = keep_graph
+    ms, reads, closed, had_cand, snaps, after = [], [], [], [], {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in range(LOOP_KF):
+            if k >= LOOP_KF - 3:
+                snaps[k] = (m, lc.to("cpu"))  # the state just before it
+            n_sim3 = len(lc.metrics.timer.samples["loop.sim3"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (m, c), sites = count_syncs(lambda: lc.on_keyframe(m, LOOP_CAM, k, ba_fn=ba._schedule_gba))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            reads.append(len(sites))
+            had_cand.append(len(lc.metrics.timer.samples["loop.sim3"]) > n_sim3)
+            if c:
+                closed.append(k)
+                after[k] = m
+    finally:
+        loop_closing.optimize_pose_graph = solve
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    C = _kf_centres(m, LOOP_KF)
+    C_gt = np.stack([-R.T @ t for R, t in gt]).astype(np.float64)
+    C_dr = np.stack([-R.T @ t for R, t in drifted]).astype(np.float64)
+    err_before = float(np.linalg.norm(C_dr[-1] - C_gt[-1]))
+    err_after = float(np.linalg.norm(C[-1] - C_gt[-1]))
+    plain = [ms[k] for k in range(10, LOOP_KF) if not had_cand[k]]
+    plain_reads = [reads[k] for k in range(10, LOOP_KF) if not had_cand[k]]
+    st = lc.metrics.timer.samples
+    pg = lc.pose_graph_stats
+    log(f"loop closing on {smi}: build_loop_map at K={K}, {N} slots, P={P}, {LOOP_KF} keyframes "
+        f"({build_s:.1f} s), drift {LOOP_DRIFT:.5f} rad and m per keyframe; loops closed at keyframes "
+        f"{closed}; loop-end camera-centre error {err_before:.4f} m before, {err_after:.4f} m after; "
+        f"peak memory allocated {peak:.3f} GiB")
+    log(f"  ms per keyframe without a candidate (keyframes 10 on): {_ms(plain)}; device->host reads "
+        f"per such keyframe median {statistics.median(plain_reads)}, max {max(plain_reads)}; "
+        f"keyframes with a candidate {[k for k in range(LOOP_KF) if had_cand[k]]}")
+    bad = []
+    if not closed:
+        bad.append("no loop closed")
+    elif not err_after < 0.5 * err_before:
+        bad.append(f"loop-end error {err_after:.4f} not below half of {err_before:.4f}")
+    if closed:
+        kc = closed[0]
+        cg = [int(x) for x in pg.get("cg_iters", [])]
+        log(f"  the closing keyframe {kc}: {ms[kc]:.3f} ms, {reads[kc]} device->host reads; detection "
+            f"{st['loop.detect'][-1] * 1e3:.3f} ms, _compute_sim3 {st['loop.sim3'][-1] * 1e3:.3f} ms, "
+            f"fusion {st['loop.fuse'][-1] * 1e3:.3f} ms, essential graph {st['loop.essential_graph'][-1] * 1e3:.3f} ms "
+            f"({pg['n_live']} live keyframes, {pg['n_edges']} edges, 15 GN iterations, CG iterations per GN "
+            f"{cg}, {pg.get('reads', 0)} CG reads), global BA {st['loop.global_ba'][-1] * 1e3:.3f} ms")
+        # One GN iteration replayed under the profiler (each of the 15 runs
+        # the same CG length here; the profiler's own cost grows with events).
+        a, kw = graphs[-1]
+        wall, n_launch, dev_us, top = profile_call(lambda: solve(*a, **dict(kw, iters=1)))
+        log(f"  one GN iteration of the essential graph replayed under the profiler (the closure ran "
+            f"{kw['iters']}): {n_launch} kernel launches, device time {dev_us / 1e3:.3f} ms of "
+            f"{wall:.3f} ms wall; most device time:")
+        log_top(top)
+        if kc not in snaps:
+            bad.append(f"closed at keyframe {kc}, before the revisit")
+        else:
+            m_snap, lc_cpu = snaps[kc]
+            # The same keyframe again on the card from the same state, warm
+            # (the first closure pays the solvers' first calls).
+            lc_warm = lc_cpu.to(device)
+            lc_warm.stage_sync = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (_, c_warm), sites = count_syncs(lambda: lc_warm.on_keyframe(m_snap, LOOP_CAM, kc,
+                                                                         ba_fn=ba._schedule_gba))
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            sw = lc_warm.metrics.timer.samples
+            log(f"  the closing keyframe {kc} again on the card from the same state (warm): {warm_ms:.3f} ms, "
+                f"{len(sites)} device->host reads, closed {c_warm}; detection "
+                f"{sw['loop.detect'][-1] * 1e3:.3f} ms, _compute_sim3 {sw['loop.sim3'][-1] * 1e3:.3f} ms, "
+                f"fusion {sw['loop.fuse'][-1] * 1e3:.3f} ms, essential graph "
+                f"{sw['loop.essential_graph'][-1] * 1e3:.3f} ms, global BA {sw['loop.global_ba'][-1] * 1e3:.3f} ms")
+            cpu = Tracker(cfg, device="cpu")
+            t0 = time.perf_counter()
+            m_cpu, c_cpu = lc_cpu.on_keyframe(map_to_torch(map_to_numpy(m_snap), "cpu"), LOOP_CAM, kc,
+                                              ba_fn=cpu._schedule_gba)
+            cpu_s = time.perf_counter() - t0
+            valid = after[kc].kf_valid[:LOOP_KF].cpu().numpy()
+            dC = np.linalg.norm(_kf_centres(after[kc], LOOP_KF) - _kf_centres(m_cpu, LOOP_KF), axis=1)[valid]
+            Rg = after[kc].kf_R[:LOOP_KF].cpu().numpy().astype(np.float64)
+            Rc = m_cpu.kf_R[:LOOP_KF].numpy().astype(np.float64)
+            dA = rotation_deg(Rg, Rc)[valid]
+            same = c_cpu and lc_cpu._loop_edges[-1:] == lc._loop_edges[:1]
+            log(f"  keyframe {kc} rerun on the CPU from the card's state ({cpu_s:.1f} s): closed "
+                f"{c_cpu}, loop edge {lc_cpu._loop_edges[-1:]} against the card's {lc._loop_edges[:1]}; "
+                f"corrected poses: max centre difference {dC.max():.2e} m, max rotation difference "
+                f"{dA.max():.2e} deg")
+            if not (same and dC.max() < LOOP_T_TOL and dA.max() < LOOP_R_TOL):
+                bad.append("the closing keyframe differs on the card and the CPU")
+
+    # Without revisit or drift: no loop.
+    m0, gt0, _ = build_loop_map(np.random.default_rng(1), n_kf=LOOP_NO_REVISIT_KF, drift=0.0, revisit=False,
+                                max_kf=K, n_kp=N, max_pt=P, device=device)
+    lc0 = LoopCloser(K, fix_scale=False, voc=voc)
+    t0 = time.perf_counter()
+    closed0 = []
+    for k in range(LOOP_NO_REVISIT_KF):
+        m0, c = lc0.on_keyframe(m0, LOOP_CAM, k, ba_fn=ba._schedule_gba)
+        if c:
+            closed0.append(k)
+    log(f"  without revisit or drift ({LOOP_NO_REVISIT_KF} keyframes, {time.perf_counter() - t0:.1f} s): "
+        f"loops closed at {closed0}")
+    if closed0:
+        bad.append(f"a loop closed without revisit at keyframes {closed0}")
+    if bad:
+        raise AssertionError(f"loop closing: {bad}")
+    return dict(closed=closed, ms=ms)
+
+
 def timed(name: str, fn, *args):
     """fn(*args), with the phase's wall time printed."""
     t0 = time.perf_counter()
@@ -1216,6 +1541,8 @@ def main() -> int:
     stereo = timed("stereo SLAM", phase_stereo, stereo_scene, smi)
     rgbd = timed("RGB-D SLAM", phase_rgbd, smi)
     multi_launches = timed("MultiTracker", phase_multi, stereo_scene, smi)
+    timed("place", phase_place, smi)
+    timed("loop", phase_loop, smi)
     for name in err:
         err[name] = max(err[name], sk["err"][name])
 

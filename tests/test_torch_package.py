@@ -54,7 +54,10 @@ def test_import_pulls_in_no_jax():
         "        'tpuslam_torch.sfm.initializer', 'tpuslam_torch.sfm.pnp', 'tpuslam_torch.sfm.sim3solver',\n"
         "        'tpuslam_torch.optim.ba', 'tpuslam_torch.geometry.triangulation',\n"
         "        'tpuslam_torch.utils.metrics', 'tpuslam_torch.ops.stereo',\n"
-        "        'tpuslam_torch.pipeline.multi', 'tpuslam_torch.io.settings'} <= set(sys.modules)\n"
+        "        'tpuslam_torch.pipeline.multi', 'tpuslam_torch.io.settings',\n"
+        "        'tpuslam_torch.geometry.sim3', 'tpuslam_torch.place.vocabulary',\n"
+        "        'tpuslam_torch.place.database', 'tpuslam_torch.place.evaluate',\n"
+        "        'tpuslam_torch.optim.pose_graph', 'tpuslam_torch.pipeline.loop_closing'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -230,6 +233,75 @@ def test_frame_features_cross_both_ways(rng):
     assert npf.desc.dtype == np.uint32
     for a, b in zip(f, frame_features_to_torch(npf, "cpu")):
         assert torch.equal(a, b)
+
+
+def _scatter_inputs(device):
+    """Float values with heavily repeated target indices: 200,000 values
+    into 5,000 targets, magnitudes over 6 decades."""
+    gen = np.random.default_rng(4)
+    idx = torch.from_numpy(gen.integers(0, 5000, 200_000)).to(device)
+    src = torch.from_numpy((gen.normal(size=(200_000, 6)) * 10.0 ** gen.uniform(-3, 3, (200_000, 1)))
+                           .astype(np.float32)).to(device)
+    return idx, src
+
+
+def test_scatter_sum_equals_index_add_on_cpu():
+    """The fixed-order scatter-sum adds each target's values in index order,
+    as index_add_ does on the CPU: equal within 1e-6 relative (bit-equal
+    in fact), and indices outside [0, n) dropped."""
+    from tpuslam_torch.pipeline._index import scatter_sum, sum_plan
+
+    idx, src = _scatter_inputs("cpu")
+    want = torch.zeros((5000, 6)).index_add_(0, idx, src)
+    got = scatter_sum(5000, idx, src)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    assert torch.equal(got, want)
+    assert torch.equal(scatter_sum(5000, idx, src, sum_plan(idx, 5000)), got)
+    out = scatter_sum(3, torch.tensor([0, 3, -1, 2, 0]), torch.ones(5))
+    assert out.tolist() == [2.0, 0.0, 1.0]
+
+
+@pytest.mark.cuda
+def test_scatter_sum_is_bit_repeatable_on_card():
+    """On the card the fixed-order scatter-sum gives the same bits on every
+    run (index_add_'s atomics do not), and matches the CPU's within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.pipeline._index import scatter_sum
+
+    idx, src = _scatter_inputs("cuda")
+    runs = [scatter_sum(5000, idx, src) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    cpu = scatter_sum(5000, idx.cpu(), src.cpu())
+    torch.testing.assert_close(runs[0].cpu(), cpu, rtol=1e-6, atol=1e-6 * float(cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_mono_session_repeats_on_card():
+    """The 14-frame monocular session of the test below, twice on the card
+    from the same seed: the same keyframes, and every pose and point the
+    same to the bit (no float sum on the path changes its order between
+    runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.geometry.camera import PinholeCamera
+    from tpuslam_torch.testing import StepWallScene, mono_session, orbit_trajectory, render_frames
+
+    cam = PinholeCamera(fx=350.0, fy=350.0, cx=160.0, cy=120.0, width=320, height=240)
+    frames = render_frames(StepWallScene(np.random.default_rng(11)), cam, orbit_trajectory(14, step=0.045))
+    runs = []
+    for _ in range(2):
+        system = System(cam, orb=ORBConfig(n_features=500), device="cuda", max_keyframes=16,
+                        max_points=4096, kf_max_frames=10, enable_loop_closing=False)
+        mono_session(system, [f.cuda() for f in frames])
+        runs.append(system.tracker)
+    a, b = runs
+    assert a._n_kf_host == b._n_kf_host
+    for name in ("kf_R", "kf_t", "kf_obs_pt", "pt_xyz", "pt_valid", "pt_normal"):
+        assert torch.equal(getattr(a.map, name), getattr(b.map, name)), name
+    for (fa, ra, Ra, ta, la), (fb, rb, Rb, tb, lb) in zip(a.trajectory, b.trajectory):
+        assert (fa, ra, la) == (fb, rb, lb) and np.array_equal(Ra, Rb) and np.array_equal(ta, tb)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@ package's System on the same frames.
 
 The scenario is tests/test_integration_mono.py's: 36 rendered frames of
 StepWallScene at 320x240, 800 ORB features, 40 keyframes, 6000 points,
-kf_max_frames 10, loop closing off (not ported yet). The port's session is
-held to that file's gates: state OK, >= 3 keyframes, > 150 points, > 25
+kf_max_frames 10, with loop closing off here (that file runs it on, and so
+does tests/test_torch_tracker_loop.py). The port's session is held to that
+file's gates: state OK, >= 3 keyframes, > 150 points, > 25
 tracked frames, ATE < 0.03 after Sim3 alignment, valid TUM and KITTI files.
 
 The JAX System runs the same frames once. The port replays the JAX
@@ -199,7 +200,6 @@ def test_keyframe_slots_are_recycled_at_capacity(scenario):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(enable_loop_closing=True), "A10"),
     (dict(async_mapping=True), "A12"),
     (dict(mapping_process=True), "A12"),
     (dict(dist_ba_devices=2), "A12"),

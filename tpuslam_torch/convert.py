@@ -18,6 +18,7 @@ from tpuslam_torch.mapstate.core import FrameFeatures, MapState
 from tpuslam_torch.ops.orb import ORBFeatures
 from tpuslam_torch.optim.ba import BAProblem
 from tpuslam_torch.optim.pose import PoseObs
+from tpuslam_torch.place.vocabulary import Vocabulary, vocabulary_from_arrays
 
 
 def array_to_tensor(x, device="cuda") -> torch.Tensor:
@@ -87,3 +88,16 @@ def map_to_numpy(m: MapState) -> MapState:
 def ba_problem_to_torch(prob, device="cuda") -> BAProblem:
     """The JAX package's BAProblem (or one of numpy arrays) -> the port's."""
     return BAProblem(*(array_to_tensor(x, device) for x in prob))
+
+
+def vocabulary_from_numpy(voc, device="cuda") -> Vocabulary:
+    """The JAX package's Vocabulary, or the arrays of its npz file (a dict
+    or an np.load result), -> the port's: uint32 centers as int32 bit
+    patterns, centers_valid kept where the tree has it."""
+    if hasattr(voc, "centers"):
+        z = {f"centers_{i}": np.asarray(c) for i, c in enumerate(voc.centers)}
+        z.update(word_weight=np.asarray(voc.word_weight), k=voc.k, levels=voc.levels)
+        if voc.centers_valid is not None:
+            z.update({f"centers_valid_{i}": np.asarray(v) for i, v in enumerate(voc.centers_valid)})
+        voc = z
+    return vocabulary_from_arrays(dict(voc), device)

@@ -51,6 +51,41 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> axis-angle (..., 3), in three
+    regimes: the atan2 form, its Taylor series where |v|^2 < 1e-10 (theta
+    near 0) and the diagonal extraction within 1e-4 of pi. The square roots
+    are guarded before they are evaluated, so forward-mode derivatives stay
+    finite at the identity."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)  # 2 sin(theta) axis
+    vv = torch.sum(v * v, dim=-1)
+    near_zero = vv < 1e-10
+    safe_vv = torch.where(near_zero, torch.ones_like(vv), vv)
+    sin_theta = 0.5 * torch.sqrt(safe_vv)
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.atan2(sin_theta, cos_theta)
+    near_pi = (torch.pi - theta < 1e-4) & ~near_zero
+
+    safe_sin = torch.where(near_zero | near_pi, torch.ones_like(sin_theta), sin_theta)
+    scale = torch.where(near_zero, 0.5 + vv / 48.0, theta / (2.0 * safe_sin))
+    w_generic = scale[..., None] * v
+
+    # Near pi: the axis from the largest diagonal entry of (R + I) / 2 = a a^T.
+    B = (R + torch.eye(3, dtype=R.dtype, device=R.device)) * 0.5
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    Bt = B.transpose(-1, -2)
+    axis_cols = torch.gather(Bt, -2, k[..., None, None].expand(*k.shape, 1, 3))[..., 0, :]
+    denom = torch.sqrt(torch.clamp(torch.gather(diag, -1, k[..., None])[..., 0], min=1e-12))
+    axis = axis_cols / denom[..., None]
+    axis = axis / torch.clamp(torch.linalg.norm(axis, dim=-1, keepdim=True), min=1e-12)
+    sign = torch.where(torch.sum(axis * v, dim=-1) < 0.0, -1.0, 1.0)
+    w_pi = theta[..., None] * axis * sign[..., None]
+    return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
 def se3_exp(xi: torch.Tensor):
     """Twist (..., 6) [omega, v] -> (R (..., 3, 3), t (..., 3))."""
     w, v = xi[..., :3], xi[..., 3:]
@@ -61,6 +96,20 @@ def se3_exp(xi: torch.Tensor):
     R = eye + a[..., None, None] * K + b[..., None, None] * KK
     V = eye + b[..., None, None] * K + c[..., None, None] * KK
     return R, (V @ v[..., None])[..., 0]
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> twist (..., 6) [omega, v], the inverse of se3_exp."""
+    w = so3_log(R)
+    theta_sq = torch.sum(w * w, dim=-1)
+    a, b, _ = _sinc_factors(theta_sq)
+    K = hat(w)
+    small = theta_sq < _EPS
+    safe_tsq = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    # V^-1 = I - K/2 + coef K^2, coef = (1 - A / (2B)) / theta^2.
+    coef = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0, (1.0 - a / (2.0 * b)) / safe_tsq)
+    Vinv = _eye_like(K) - 0.5 * K + coef[..., None, None] * (K @ K)
+    return torch.cat([w, (Vinv @ t[..., None])[..., 0]], dim=-1)
 
 
 def so3_project(R: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from tpuslam_torch.matching.hamming import _popcount32, _words
-from tpuslam_torch.pipeline._index import scatter_last
+from tpuslam_torch.pipeline._index import scatter_last, scatter_sum
 
 
 class FrameFeatures(NamedTuple):
@@ -380,8 +380,9 @@ def update_point_normals(m: MapState, scale_factors: torch.Tensor) -> MapState:
     Xe = m.pt_xyz[torch.clamp(flat_pt, max=P - 1)]
     ve = Xe - C.repeat_interleave(N, dim=0)
     ve = ve / torch.clamp(torch.linalg.norm(ve, dim=-1, keepdim=True), min=1e-9)
-    nsum = torch.zeros((P + 1, 3), dtype=torch.float32, device=dev).index_add(
-        0, flat_pt, torch.where(ok[:, None], ve, 0.0))[:P]
+    # The unit vectors' sums in a fixed order: index_add_ on the card would
+    # add them in another order each run.
+    nsum = scatter_sum(P, flat_pt, torch.where(ok[:, None], ve, 0.0))
     ncnt = torch.zeros(P + 1, dtype=torch.float32, device=dev).index_add(
         0, flat_pt, ok.to(torch.float32))[:P]
     normal = nsum / torch.clamp(ncnt[:, None], min=1.0)

@@ -4,9 +4,10 @@ solvers; the point-sharded form is not ported yet).
 
 `bundle_adjustment` solves the reduced system S dx = rhs by block-Jacobi
 preconditioned conjugate gradients, applying S = Hpp - W Hll^-1 W^T
-matrix-free with edge gathers and `index_add_` scatters. The local-BA
-solver `dense_schur_bundle_adjustment` assembles S densely over at most A
-adjustable keyframes and solves it directly.
+matrix-free with edge gathers and scatter-sums (pipeline/_index.py's
+scatter_sum: a fixed order of addition, so the card repeats its sums).
+The local-BA solver `dense_schur_bundle_adjustment` assembles S densely
+over at most A adjustable keyframes and solves it directly.
 
 Both run their LM and CG iterations as Python loops with no host read: the
 accept/reject of each LM step and the CG step sizes are `torch.where`s on
@@ -23,6 +24,7 @@ import torch
 from tpuslam_torch.geometry.camera import PinholeCamera
 from tpuslam_torch.geometry.se3 import hat, se3_compose, se3_exp, so3_project
 from tpuslam_torch.optim.robust import CHI2_MONO, CHI2_STEREO
+from tpuslam_torch.pipeline._index import scatter_sum, sum_plan
 
 
 class BAProblem(NamedTuple):
@@ -118,11 +120,6 @@ def _huber_weight(chi2, delta_sq, use_huber: bool):
     return torch.clamp(torch.sqrt(delta_sq / torch.clamp(chi2, min=1e-12)), max=1.0)
 
 
-def _scatter(n: int, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """zeros((n, ...)).at[idx].add(src)."""
-    return torch.zeros((n, *src.shape[1:]), dtype=src.dtype, device=src.device).index_add_(0, idx, src)
-
-
 def _lm_accept(cam, prob, R, t, X, R_new, t_new, X_new, lam, active0, delta_sq, use_huber):
     """One LM accept/reject on the device: the step is taken where the robust
     cost falls; lambda halves on success and quadruples on failure."""
@@ -154,6 +151,7 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
     active0 = prob.valid.to(torch.float32)
     kf_pinned, pt_pinned = prob.fixed_kf, prob.fixed_pt
     fixed_kf_e, fixed_pt_e = kf_pinned[kf], pt_pinned[pt]
+    by_pt, by_kf = sum_plan(pt, P), sum_plan(kf, K)
 
     R, t, X = prob.R, prob.t, prob.X
     lam = torch.full((), lam0, dtype=torch.float32, device=dev)
@@ -172,8 +170,8 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
         bp_e = -torch.einsum("eij,ei->ej", wJp, r)
         bl_e = -torch.einsum("eij,ei->ej", wJl, r)
 
-        Hll = _scatter(P, pt, Hll_e)
-        bl = _scatter(P, pt, bl_e)
+        Hll = scatter_sum(P, pt, Hll_e, by_pt)
+        bl = scatter_sum(P, pt, bl_e, by_pt)
         # LM damping plus a trace-relative floor (see the JAX package: rank-2
         # single-observation point blocks), fixed/empty blocks pinned.
         tr3 = (Hll[:, 0, 0] + Hll[:, 1, 1] + Hll[:, 2, 2])[:, None, None]
@@ -185,7 +183,7 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
 
         z0 = (Hll_inv @ bl[..., None])[..., 0]
         coup_e = (W_e @ z0[pt][..., None])[..., 0]
-        packed = _scatter(K, kf, torch.cat([Hpp_e, bp_e[..., None], coup_e[..., None]], dim=-1))
+        packed = scatter_sum(K, kf, torch.cat([Hpp_e, bp_e[..., None], coup_e[..., None]], dim=-1), by_kf)
         Hpp, bp, coup = packed[..., :6], packed[..., 6], packed[..., 7]
         tr6 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)[:, None, None]
         Hpp = Hpp + (lam + 1e-5 * tr6 + 1e-10) * eye6
@@ -194,9 +192,9 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
         W_t = W_e.transpose(-1, -2)
 
         def S_matvec(vk):
-            ysum = _scatter(P, pt, (W_t @ vk[kf][..., None])[..., 0])
+            ysum = scatter_sum(P, pt, (W_t @ vk[kf][..., None])[..., 0], by_pt)
             z = (Hll_inv @ ysum[..., None])[..., 0]
-            coupling = _scatter(K, kf, (W_e @ z[pt][..., None])[..., 0])
+            coupling = scatter_sum(K, kf, (W_e @ z[pt][..., None])[..., 0], by_kf)
             return (Hpp @ vk[..., None])[..., 0] - coupling
 
         rhs = bp - torch.where(kf_pinned[:, None], 0.0, coup)
@@ -219,7 +217,7 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
         dx_pose = xk
 
         # Back-substitute the points: dx_pt = Hll^-1 (bl - W^T dx_pose).
-        hlp_dx = _scatter(P, pt, (W_t @ dx_pose[kf][..., None])[..., 0])
+        hlp_dx = scatter_sum(P, pt, (W_t @ dx_pose[kf][..., None])[..., 0], by_pt)
         dx_pt = (Hll_inv @ (bl - hlp_dx)[..., None])[..., 0]
         dx_pose = torch.where(kf_pinned[:, None], 0.0, dx_pose)
         dx_pt = torch.where(pt_pinned[:, None], 0.0, dx_pt)
@@ -237,7 +235,7 @@ def dense_schur_bundle_adjustment(cam: PinholeCamera, prob: BAProblem, active: t
     """LM bundle adjustment with an explicit dense reduced camera system over
     the (A,) keyframe slots of `active` (padded with -1); every keyframe not
     listed is held fixed, as is prob.fixed_kf. The pose side is summed per
-    active slot with `index_add_` (the parked slot A dropped), the coupling
+    active slot with a scatter-sum (the parked slot A dropped), the coupling
     Sum_p B_p^T B_p with B[p, a] = L_p^T W_{a,p}^T (L_p L_p^T = Hll_p^-1) is
     one edge scatter and one matrix product, and the (A*6)^2 system is
     solved directly. Returns (R, t, X, edge_chi2)."""
@@ -262,6 +260,8 @@ def dense_schur_bundle_adjustment(cam: PinholeCamera, prob: BAProblem, active: t
     active0 = prob.valid.to(torch.float32)
     pt_pinned = prob.fixed_pt
     pt_pinned_e = pt_pinned[pt]
+    by_pt, by_slot = sum_plan(pt, P), sum_plan(a_e, A + 1)
+    by_pair = sum_plan(pt * (A + 1) + a_e, P * (A + 1))
 
     R, t, X = prob.R, prob.t, prob.X
     lam = torch.full((), lam0, dtype=torch.float32, device=dev)
@@ -281,7 +281,7 @@ def dense_schur_bundle_adjustment(cam: PinholeCamera, prob: BAProblem, active: t
         bl_e = -torch.einsum("eij,ei->ej", wJl, r)
 
         # Point side: one packed scatter (Hll 9 + bl 3 floats).
-        acc_l = _scatter(P, pt, torch.cat([Hll_e.reshape(-1, 9), bl_e], dim=-1))
+        acc_l = scatter_sum(P, pt, torch.cat([Hll_e.reshape(-1, 9), bl_e], dim=-1), by_pt)
         Hll = acc_l[:, :9].reshape(P, 3, 3)
         bl = acc_l[:, 9:]
         tr3 = (Hll[:, 0, 0] + Hll[:, 1, 1] + Hll[:, 2, 2])[:, None, None]
@@ -294,7 +294,8 @@ def dense_schur_bundle_adjustment(cam: PinholeCamera, prob: BAProblem, active: t
         # Pose side per active slot, the parked slot A dropped.
         z0 = (Hll_inv @ bl[..., None])[..., 0]
         coup_e = (W_e @ z0[pt][..., None])[..., 0]
-        acc_p = _scatter(A + 1, a_e, torch.cat([Hpp_e.reshape(-1, 36), bp_e, coup_e], dim=-1))[:A]
+        acc_p = scatter_sum(A + 1, a_e, torch.cat([Hpp_e.reshape(-1, 36), bp_e, coup_e], dim=-1),
+                         by_slot)[:A]
         Hpp = acc_p[:, :36].reshape(A, 6, 6)
         bp, coup = acc_p[:, 36:42], acc_p[:, 42:]
         tr6 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)[:, None, None]
@@ -305,16 +306,16 @@ def dense_schur_bundle_adjustment(cam: PinholeCamera, prob: BAProblem, active: t
 
         # Coupling: B (P, A, 3, 6) by one edge scatter, Sc = B^T B.
         B_e = L[pt].transpose(-1, -2) @ W_e.transpose(-1, -2)  # (E, 3, 6)
-        B = _scatter(P * (A + 1), pt * (A + 1) + a_e, B_e.reshape(-1, 18))
+        B = scatter_sum(P * (A + 1), pt * (A + 1) + a_e, B_e.reshape(-1, 18), by_pair)
         B = B.reshape(P, A + 1, 3, 6)[:, :A]
         Bm = B.permute(0, 2, 1, 3).reshape(P * 3, A * 6)
         S = _blockdiag6(Hpp) - Bm.T @ Bm
 
         dx_a = torch.linalg.solve_ex(S, rhs.reshape(A * 6, 1))[0].reshape(A, 6)
         dx_a = torch.where(act_ok[:, None], dx_a, 0.0)
-        dx_pose = _scatter(K, torch.where(act_ok, act, K - 1), dx_a)
+        dx_pose = scatter_sum(K, torch.where(act_ok, act, K - 1), dx_a)
 
-        hlp_dx = _scatter(P, pt, (W_e.transpose(-1, -2) @ dx_pose[kf][..., None])[..., 0])
+        hlp_dx = scatter_sum(P, pt, (W_e.transpose(-1, -2) @ dx_pose[kf][..., None])[..., 0], by_pt)
         dx_pt = (Hll_inv @ (bl - hlp_dx)[..., None])[..., 0]
         dx_pt = torch.where(pt_pinned[:, None], 0.0, dx_pt)
 

@@ -8,12 +8,18 @@
   longer and slices that slot off.
 - `jnp.nonzero(mask, size=L, fill_value=f)`: `nonzero_static` builds the
   same fixed-size list from a stable argsort, with no device->host sync.
+- `.at[idx].add(src)` with float values: `index_add_` on the card adds with
+  atomics, in an order that changes from run to run, so the sums (and every
+  decision taken on them) do not repeat. `scatter_sum` adds each target's
+  values in a fixed order, the order of idx, on the CPU and the card alike.
 
 Every helper indexes the dim just after idx's leading dims: dst is
 (..., N) or (..., N, C) and idx (..., Nq), with the same leading dims.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -69,3 +75,32 @@ def nonzero_static(mask: torch.Tensor, size: int, fill_value: int) -> torch.Tens
 def sf_pow(sf: float, lvl: torch.Tensor) -> torch.Tensor:
     """float32(sf) ** level, as the JAX package's weakly typed power."""
     return torch.full_like(lvl, sf, dtype=torch.float32).pow(lvl.to(torch.float32))
+
+
+class SumPlan(NamedTuple):
+    """The sort of a scatter-sum's indices: perm puts the values in target
+    order (stable, so each target keeps idx's order) and offsets[i] is
+    where target i's run starts. Indices outside [0, n) fall outside every
+    run and are dropped, as JAX drops an out-of-bounds scatter."""
+
+    perm: torch.Tensor     # (E,) int64
+    offsets: torch.Tensor  # (n + 1,) int64
+
+
+def sum_plan(idx: torch.Tensor, n: int) -> SumPlan:
+    idx = idx.long()
+    perm = torch.argsort(idx, stable=True)
+    bounds = torch.arange(n + 1, device=idx.device)
+    return SumPlan(perm, torch.searchsorted(idx[perm], bounds))
+
+
+def scatter_sum(n: int, idx: torch.Tensor, src: torch.Tensor,
+                plan: Optional[SumPlan] = None) -> torch.Tensor:
+    """zeros((n, ...)).at[idx].add(src), with each target's values added in
+    idx's order, one after the other: deterministic on the card, and equal
+    to index_add_ on the CPU. A plan (sum_plan(idx, n)) is reused by the
+    solvers whose indices stay fixed across iterations."""
+    if plan is None:
+        plan = sum_plan(idx, n)
+    return torch.segment_reduce(src[plan.perm], "sum", offsets=plan.offsets, axis=0,
+                                unsafe=True, initial=0)

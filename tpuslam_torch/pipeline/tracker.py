@@ -6,8 +6,10 @@ States: NO_IMAGES_YET, NOT_INITIALIZED, OK, LOST. Per frame: ORB
 extraction (stereo: both images in one batch, then stereo matching; RGB-D:
 the depth image sampled at each keypoint) -> (two-view initialization, or
 one keyframe from the depths | the fused tracking step) -> NeedNewKeyFrame
--> LocalMapping (mapping_front) and two chunks of local BA, synchronously
-on each keyframe -> relocalization when LOST. A depth sensor's keyframes
+-> LocalMapping (mapping_front), two chunks of local BA and loop closing
+(detection, and on a loop the correction and global BA), synchronously on
+each keyframe -> relocalization when LOST, from the BoW database's
+keyframe candidates first. A depth sensor's keyframes
 add map points from their close depths, and in localization mode its
 frames also track visual-odometry points made from the last frame's depths.
 
@@ -18,9 +20,8 @@ so insertion never reads the device watermark. Random hypotheses (two-view
 and PnP RANSAC) come from a torch.Generator the tracker owns, seeded from
 its config, through `_draw_picks`.
 
-Not ported yet, and refused with NotImplementedError: loop closing and
-place recognition (ROADMAP A10), background or multi-process mapping and
-the distributed bundle adjuster (A12).
+Not ported yet, and refused with NotImplementedError: background or
+multi-process mapping and the distributed bundle adjuster (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from tpuslam_torch.mapstate.core import (
     MapState,
     _nanmedian_last,
     compact_point_slots,
+    covisibility_weights,
     insert_keyframe,
     insert_points,
     make_empty_map,
@@ -51,6 +53,8 @@ from tpuslam_torch.ops.orb import ORBConfig, extract_orb
 from tpuslam_torch.optim.ba import BAProblem, bundle_adjustment
 from tpuslam_torch.pipeline import steps
 from tpuslam_torch.pipeline._index import scatter_last
+from tpuslam_torch.pipeline.loop_closing import LoopCloser
+from tpuslam_torch.place.vocabulary import sparse_bow_vector
 from tpuslam_torch.sfm.initializer import draw_picks, initialize_two_view
 from tpuslam_torch.sfm.pnp import pnp_ransac
 from tpuslam_torch.utils.metrics import Metrics
@@ -106,8 +110,6 @@ class TrackerConfig:
 
 
 def _unported(cfg: TrackerConfig) -> Optional[str]:
-    if cfg.enable_loop_closing:
-        return "enable_loop_closing=True: loop closing and place recognition (ROADMAP A10)"
     if cfg.async_mapping or cfg.mapping_process:
         return "async_mapping / mapping_process: background and multi-process mapping (ROADMAP A12)"
     if cfg.dist_ba_devices >= 2:
@@ -170,7 +172,17 @@ class Tracker:
         self.localization_mode = False
         # The last relocalization's frame (mnLastRelocFrameId); a reset keeps it.
         self._last_reloc_frame_id = -(10**9)
+        self.reloc_path: Optional[str] = None  # the last relocalization's: "bow" or "brute_force"
+        # Loop closing (scale fixed once a depth sensor initialized the map).
+        self.loop_closer: Optional[LoopCloser] = None
+        if config.enable_loop_closing:
+            self.loop_closer = self._new_loop_closer(None)
         self._reset_tracking()
+
+    def _new_loop_closer(self, voc) -> LoopCloser:
+        lc = LoopCloser(self.cfg.max_keyframes, fix_scale=False, voc=voc)
+        lc.metrics = self.metrics  # its stages ("loop.*") time with the tracker's
+        return lc
 
     def _empty_map(self) -> MapState:
         return make_empty_map(self.cfg.max_keyframes, self.kp_capacity, self.cfg.max_points,
@@ -638,7 +650,7 @@ class Tracker:
     def _mapping_compute(self, m: MapState, ki: int) -> MapState:
         """The LocalMapping work for new keyframe ki, snapshot -> snapshot:
         point-slot compaction near capacity, mapping_front, two chunks of
-        local BA, the normals."""
+        local BA, the normals, then loop closing when it is on."""
         cfg = self.cfg
         if int(m.n_pt) >= int(0.95 * m.capacity_pt):
             m, self._pending_pt_remap = compact_point_slots(m)
@@ -657,7 +669,35 @@ class Tracker:
             m = self._local_ba(m, ki, iters=4)
         with self._stage("map.normals"):
             m = update_point_normals(m, self.scale_factors)
+        if self.loop_closer is not None:
+            with self._stage("map.loop"):
+                m = self._close_loops(m, ki)
         return m
+
+    def _close_loops(self, m: MapState, ki: int) -> MapState:
+        """The loop-closing hand-off of keyframe ki (LocalMapping -> LoopClosing).
+        On a closure the normals are refreshed, and the fusion's point
+        forwarding is composed with any compaction remap of this epoch, so the
+        tracker's live references follow the surviving loop points."""
+        lc = self.loop_closer
+        lc.fix_scale = self._depth_mode
+        lc.stage_sync = self.stage_sync
+        m2, closed = lc.on_keyframe(m, self.cfg.cam, ki,
+                                    ba_fn=lambda mm: self._schedule_gba(mm, iters=10))
+        if not closed:
+            return m
+        m = update_point_normals(m2, self.scale_factors)
+        rl = lc.last_point_remap
+        if rl is not None:
+            r1 = self._pending_pt_remap
+            self._pending_pt_remap = rl if r1 is None else torch.where(
+                r1 >= 0, rl[r1.clamp(min=0).long()], -1).to(torch.int32)
+        return m
+
+    def _schedule_gba(self, m: MapState, iters: int = 10) -> MapState:
+        """Global BA for a freshly corrected loop, synchronously (mapping
+        runs in the tracker's thread)."""
+        return self._global_ba(m, iters=iters)
 
     # --------------------------------------------------------- relocalization
 
@@ -671,36 +711,76 @@ class Tracker:
                                     feats.valid[:, None] & has_k[None, :], max_dist=50, nn_ratio=0.75)
         return torch.where(ok, obs_k[idx], -1), ok
 
+    def _reloc_candidate_kfs(self, feats: FrameFeatures) -> Optional[list]:
+        """BoW relocalization candidates (KeyFrameDatabase::
+        DetectRelocalizationCandidates): the frame's BoW vector against the
+        loop closer's database, with no min-score gate and no covisible
+        exclusion. None without a vocabulary or a database."""
+        lc = self.loop_closer
+        if lc is None or lc.voc is None or lc.db is None:
+            return None
+        v = sparse_bow_vector(lc.voc, feats.desc, feats.valid)
+        K = self.map.capacity_kf
+        idx, ok = lc.db.query(v, torch.zeros(K, dtype=torch.bool, device=self.device),
+                              covisibility_weights(self.map), min_score=0.0, max_candidates=3)
+        got = torch.stack([idx, ok.to(idx.dtype)]).cpu().numpy()  # one read
+        return [int(i) for i, o in zip(*got) if o] or None
+
     def _relocalize(self, feats: FrameFeatures, frame_id: int) -> bool:
-        """Relocalization by the brute-force branch of the JAX package's
-        Tracking::Relocalization, the one it takes without a vocabulary: the
-        frame's descriptors against every map point, EPnP RANSAC, pose
-        optimization, then the local-map polish. (Keyframe candidates from
-        the BoW database, with the projective widening of
-        steps.reloc_search_by_projection, come with place recognition,
-        ROADMAP A10.)"""
+        """Tracking::Relocalization: BoW keyframe candidates -> descriptor
+        matching against each candidate's points -> EPnP RANSAC -> pose
+        optimization -> up to two rounds of projective widening to reach 50
+        inliers -> the local-map polish. Brute-force matching over every map
+        point when no candidate yields 15 matches (or there is no database),
+        accepted at the configured minimum."""
         m = self.map
         cfg = self.cfg
         n = feats.xy.shape[0]
-        pair = m.pt_valid[:, None] & feats.valid[None, :]
-        idx, _, ok = match_nn_ratio(m.pt_desc, feats.desc, pair, max_dist=50, nn_ratio=0.75)
-        if int(ok.sum()) < 15:
+        attempts = []  # (pt_idx (N,), ok (N,), source keyframe or -1)
+        cand_kfs = self._reloc_candidate_kfs(feats)
+        self.reloc_path = "bow" if cand_kfs else "brute_force"
+        for kf in cand_kfs or ():
+            pt_idx, ok = self._match_frame_to_kf_points(feats, kf)
+            if int(ok.sum()) >= 15:
+                attempts.append((pt_idx, ok, kf))
+        if not attempts:
+            self.reloc_path = "brute_force"
+            pair = m.pt_valid[:, None] & feats.valid[None, :]
+            idx, _, ok = match_nn_ratio(m.pt_desc, feats.desc, pair, max_dist=50, nn_ratio=0.75)
+            if int(ok.sum()) < 15:
+                return False
+            pt_idx = torch.full((n,), -1, dtype=torch.int32, device=self.device)
+            pt_idx = scatter_last(pt_idx, idx, torch.where(
+                ok, torch.arange(m.capacity_pt, dtype=torch.int32, device=self.device), pt_idx[idx]))
+            attempts.append((pt_idx, pt_idx >= 0, -1))
+
+        best = None  # (n_good, R, t, obs)
+        for pt_idx, ok, kf in attempts:
+            valid = ok & (pt_idx >= 0)
+            r = pnp_ransac(cfg.cam.K, m.pt_xyz[pt_idx.clamp(min=0).long()], feats.xy,
+                           torch.ones(n, device=self.device), valid,
+                           picks=self._draw_picks(128, 4, valid), min_inliers=15)
+            if not bool(r.success):
+                continue
+            obs = torch.where(valid & r.inliers, pt_idx, -1)
+            R, t, obs, n_inl = steps.optimize_frame_pose(cfg.cam, m, feats, obs, r.R, r.t,
+                                                         self.inv_sigma2)
+            n_good = int(n_inl)
+            if n_good < 10:
+                continue
+            if n_good < 50 and kf >= 0:
+                R, t, obs, n_good = self._reloc_widen(feats, kf, R, t, obs, n_good)
+            # 50 inliers on a BoW candidate (bMatch); the brute-force match
+            # accepts the configured minimum and leaves the rest to the local
+            # map's gate.
+            accept = 50 if kf >= 0 else cfg.min_inliers_ok
+            if n_good >= accept and (best is None or n_good > best[0]):
+                best = (n_good, R, t, obs)
+            if n_good >= 50:
+                break
+        if best is None:
             return False
-        pt_idx = torch.full((n,), -1, dtype=torch.int32, device=self.device)
-        pt_idx = scatter_last(pt_idx, idx, torch.where(
-            ok, torch.arange(m.capacity_pt, dtype=torch.int32, device=self.device), pt_idx[idx]))
-        valid = pt_idx >= 0
-        r = pnp_ransac(cfg.cam.K, m.pt_xyz[pt_idx.clamp(min=0).long()], feats.xy,
-                       torch.ones(n, device=self.device), valid,
-                       picks=self._draw_picks(128, 4, valid), min_inliers=15)
-        if not bool(r.success):
-            return False
-        obs = torch.where(valid & r.inliers, pt_idx, -1)
-        R, t, obs, n_inl = steps.optimize_frame_pose(cfg.cam, m, feats, obs, r.R, r.t, self.inv_sigma2)
-        # The brute-force match accepts the configured minimum and leaves the
-        # rest to the local map's gate.
-        if int(n_inl) < cfg.min_inliers_ok:
-            return False
+        _, R, t, obs = best
         R, t, obs, n_inl, _, _ = self._track_local_map(m, R, t, feats, obs)
         if int(n_inl) < cfg.min_inliers_ok:
             return False
@@ -710,6 +790,25 @@ class Tracker:
         self._velocity = None
         self._last_reloc_frame_id = frame_id
         return True
+
+    def _reloc_widen(self, feats: FrameFeatures, kf: int, R, t, obs, n_good: int):
+        """Relocalization's projective widening from candidate kf: a coarse
+        window (10 px, descriptor 100), and if that reaches 50 and leaves
+        30 to 50 inliers a narrow one (3 px, 64). Returns (R, t, obs,
+        n_good)."""
+        cfg = self.cfg
+        m = self.map
+        for window, max_desc in ((10.0, 100), (3.0, 64)):
+            obs, n_add = steps.reloc_search_by_projection(
+                cfg.cam, m, kf, R, t, feats, obs, scale_factor=cfg.orb.scale_factor,
+                n_levels=cfg.orb.n_levels, window=window, max_desc_dist=max_desc)
+            if n_good + int(n_add) < 50:
+                break
+            R, t, obs, n_inl = steps.optimize_frame_pose(cfg.cam, m, feats, obs, R, t, self.inv_sigma2)
+            n_good = int(n_inl)
+            if not 30 < n_good < 50:
+                break
+        return R, t, obs, n_good
 
     # ------------------------------------------ localization-mode tracking
 
@@ -903,6 +1002,8 @@ class Tracker:
         self.state = TrackingState.NO_IMAGES_YET
         self.trajectory = []
         self.n_recycled_kf_slots = 0
+        if self.loop_closer is not None:  # the vocabulary is kept
+            self.loop_closer = self._new_loop_closer(self.loop_closer.voc)
         self._reset_tracking()
 
     # ------------------------------------------------------------- public API

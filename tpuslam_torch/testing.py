@@ -4,7 +4,8 @@ this package), the inputs of a coherent tracking step, a tracking session
 over a real MapState (build_depth_session), rendered monocular, stereo and
 RGB-D frames (render_frames, render_stereo_frames, render_rgbd_frames), a
 System session over them (mono_session, depth_session) and its ATE after a
-Sim3 or a rigid alignment (trajectory_ate).
+Sim3 or a rigid alignment (trajectory_ate), and a drifted loop map for loop
+closing (build_loop_map).
 
 A coherent step: the keypoints of a frame rendered at pose A, back-projected
 through A's depth image, are both the last frame's points and the first
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import PinholeCamera, unproject
+from tpuslam_torch.geometry.camera import PinholeCamera, project, unproject
 from tpuslam_torch.geometry.se3 import se3_apply, se3_inverse, so3_exp
 from tpuslam_torch.mapstate.core import (
     FrameFeatures,
@@ -503,3 +504,109 @@ def trajectory_ate(trajectory, poses, fix_scale: bool = False):
     aligned = float(s) * est @ R.numpy().T + t.numpy()
     ate = float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, axis=-1))))
     return ate, len(est), (float(s), R.numpy(), t.numpy())
+
+
+# The camera of build_loop_map's keyframes (tests/test_loop_closing.py's).
+LOOP_CAM = PinholeCamera(fx=400.0, fy=400.0, cx=160.0, cy=120.0, width=320, height=240)
+
+
+def build_loop_map(rng, n_kf: int = 16, drift: float = 0.012, revisit: bool = True,
+                   max_kf: int | None = None, n_kp: int = 200, max_pt: int | None = None,
+                   device="cpu"):
+    """A drifted loop map built directly on a MapState (a port of
+    tests/test_loop_closing.py's build_loop_map, capacities as arguments):
+    cameras on a circle of radius 6 facing outward at clusters of 40 points
+    on a radius-10 wall, each keyframe observing its own cluster, the
+    previous one and 20 points of the one before. Odometry drifts by `drift`
+    rad of yaw and `drift` m along x per keyframe. With `revisit` the last 3
+    keyframes also see clusters 0 and 1 through DUPLICATE points (the same
+    descriptors, drift-displaced positions): the situation loop closing must
+    recognize. Keypoints are LOOP_CAM's projections. Returns (map, gt
+    poses, drifted poses), poses as (R, t) numpy float32 pairs."""
+    R_circle = 6.0
+    clusters, cluster_desc = [], []
+    for k in range(n_kf):
+        ang = 2 * np.pi * k / n_kf
+        center = np.array([(R_circle + 4.0) * np.sin(ang), 0.0, -(R_circle + 4.0) * np.cos(ang)])
+        clusters.append((center + rng.uniform(-1.5, 1.5, (40, 3))).astype(np.float32))
+        cluster_desc.append(rng.integers(0, 2**32, (40, 8), dtype=np.uint32))
+
+    def rot_y(a: float) -> np.ndarray:
+        return so3_exp(torch.tensor([0.0, a, 0.0], dtype=torch.float32)).numpy()
+
+    gt = []
+    for k in range(n_kf):
+        ang = 2 * np.pi * k / n_kf
+        C = np.array([R_circle * np.sin(ang), 0.0, -R_circle * np.cos(ang)], np.float32)
+        R = rot_y(np.pi - ang).T  # the camera's +z points outward through C
+        gt.append((R.astype(np.float32), (-R @ C).astype(np.float32)))
+    drifted = [gt[0]]
+    dR = rot_y(drift)
+    for k in range(1, n_kf):
+        Rrel = gt[k][0] @ gt[k - 1][0].T
+        trel = gt[k][1] - Rrel @ gt[k - 1][1]
+        Rrel_n = dR @ Rrel
+        trel_n = trel + np.array([drift, 0, 0], np.float32)
+        drifted.append((Rrel_n @ drifted[k - 1][0], Rrel_n @ drifted[k - 1][1] + trel_n))
+
+    N = n_kp
+    m = make_empty_map(max_kf or max(24, n_kf + 8), N, max_pt or max(2400, n_kf * 44 + 400), device)
+    N_WEAK = 20  # the weak covisibility tail (k - 2) keeps minScore realistic
+    n_revisit = 3 if revisit else 0
+    prev_own = prev2_own = dup_slots = None
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    for k in range(n_kf):
+        R_d, t_d = drifted[k]
+        j1, j2 = max(k - 1, 0), (k - 2 if k > 1 else 0)
+        is_revisit = k >= n_kf - n_revisit
+        extra = [0, 1] if is_revisit else []
+        pts_gt = np.concatenate([clusters[k], clusters[j1], clusters[j2][:N_WEAK]]
+                                + [clusters[c] for c in extra])
+        descs = np.concatenate([cluster_desc[k], cluster_desc[j1], cluster_desc[j2][:N_WEAK]]
+                               + [cluster_desc[c] for c in extra])
+        n_obs = len(pts_gt)
+        assert n_obs <= N
+        # The gt view's camera-frame geometry, stored through the DRIFTED pose.
+        R_gt, t_gt = gt[k]
+        X_map = ((pts_gt @ R_gt.T + t_gt) - t_d) @ R_d
+        desc_arr = np.zeros((N, 8), np.uint32)
+        desc_arr[:n_obs] = descs
+        valid = np.zeros(N, bool)
+        valid[:n_obs] = True
+        obs = np.full(N, -1, np.int32)
+        new_mask = np.zeros(N, bool)
+        new_mask[:40] = True
+        creates_dups = is_revisit and dup_slots is None
+        if creates_dups:
+            new_mask[80:n_obs] = True
+        xyz = np.zeros((N, 3), np.float32)
+        xyz[:n_obs] = X_map
+        m, slots = insert_points(m, t(xyz), t(desc_arr.view(np.int32)), k, t(new_mask),
+                                 torch.zeros((N, 3), device=device), torch.zeros(N, device=device),
+                                 torch.full((N,), float("inf"), device=device))
+        slots = slots.cpu().numpy()
+        obs[new_mask] = slots[new_mask]
+        n_pw = 80 + N_WEAK
+        if k > 0:
+            obs[40:80] = prev_own
+        if k > 1:
+            obs[80:n_pw] = prev2_own[:N_WEAK]
+        if is_revisit:
+            if creates_dups:
+                dup_slots = slots[n_pw:n_obs].copy()
+            else:
+                obs[n_pw:n_obs] = dup_slots
+        else:
+            prev2_own = prev_own.copy() if prev_own is not None else slots[:40].copy()
+            prev_own = slots[:40].copy()
+
+        # Observations: the stored positions through the drifted pose.
+        Xs = m.pt_xyz[t(np.maximum(obs, 0)).long()]
+        uv = project(LOOP_CAM, se3_apply(t(R_d), t(t_d), Xs))
+        xy = torch.where(t(obs >= 0)[:, None], uv, 0.0)
+        feats = FrameFeatures(xy=xy, level=torch.zeros(N, dtype=torch.int32, device=device),
+                              angle=torch.zeros(N, device=device), desc=t(desc_arr.view(np.int32)),
+                              valid=t(valid), u_right=torch.full((N,), -1.0, device=device),
+                              depth=torch.zeros(N, device=device))
+        m, _ = insert_keyframe(m, feats, t(R_d), t(t_d), k, t(obs))
+    return m, gt, drifted
