@@ -102,6 +102,23 @@ Phases, any failure exits non-zero:
      per keyframe without a candidate, the closing keyframe by stage (Sim3,
      fusion, essential graph with its GN and CG iterations and launches,
      global BA), reads per keyframe and peak memory.
+  facade: the mono session's map (saved at the end of phase 6 with
+     System.save_map, the JAX package's npz format) loaded into a fresh
+     System on the card (and on the CPU, bit-equal), then 20 frames of the mono path localized against it: the
+     first relocalized within 5 cm of the truth by the brute-force branch (a
+     fresh System has no BoW database, as in the JAX package), >= 75%
+     tracked, the map unchanged, both kernels on every frame; one more frame
+     under utils.metrics.torch_trace (a Chrome trace written, its launches
+     counted); detect_plane and topdown_layout on the loaded 200,000-slot
+     map and remap_bilinear of a 752x480 EuRoC pair, each on the card
+     against the CPU (normals within 0.1 deg and equal inliers; equal edges
+     and pixels within 1e-3; within 1e-4); then a 40-frame TUM RGB-D folder
+     of the RGB-D phase's scene written without PIL (8-bit RGB, 16-bit
+     depth at 5000 per metre) and run through examples.rgbd_tum with a
+     LiveViewer attached (every 10 frames, /state read once over loopback):
+     the RGB-D phase's gates, decode and track ms per frame, the viewer's ms
+     and device->host reads per push.
+The host library (csrc_host/*.cc, g++ and zlib) is built in phase 2 too.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} (the launches of every phase's main-path run, and the
 stereo shapes' times); the last is {"ok": true, "device": {...}}.
@@ -110,11 +127,14 @@ stereo shapes' times); the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import urllib.request
 import warnings
 from pathlib import Path
 
@@ -246,6 +266,31 @@ PLACE_R1, PLACE_R5 = 0.85, 0.92
 LOOP_KF, LOOP_NO_REVISIT_KF = 240, 64
 LOOP_DRIFT = 0.012 * 16 / LOOP_KF
 LOOP_T_TOL, LOOP_R_TOL = 0.01, 0.1  # card against CPU on the closing keyframe (m, deg)
+# Facade: the mono session's map saved, loaded into a fresh System and
+# localized against over frames of the mono path; the RGB-D driver over a
+# TUM folder of the RGB-D phase's scene at TUM1.yaml's point; the map's
+# renderers and the EuRoC rectification on the card against the CPU.
+FACADE_LOC = range(20, 40)
+FACADE_RELOC_TOL, FACADE_LOC_TRACKED = 0.05, 0.75
+FACADE_TUM_FRAMES, FACADE_VIEWER_EVERY = 40, 10
+PLANE_TOL_DEG, LAYOUT_TOL, REMAP_TOL = 0.1, 1e-3, 1e-4
+# EuRoC.yaml's LEFT / RIGHT rectification blocks (the reference's
+# Examples/Stereo/EuRoC.yaml, as tests/test_torch_settings.py writes it).
+EUROC_RECT = [dict(
+    K=np.array([[458.654, 0.0, 367.215], [0.0, 457.296, 248.375], [0.0, 0.0, 1.0]]),
+    D=np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]),
+    R=np.array([[0.999966347530033, -0.001422739138722922, 0.008079580483432283],
+                [0.001365741834644127, 0.9999741760894847, 0.007055629199258132],
+                [-0.008089410156878961, -0.007044357138835809, 0.9999424675829176]]),
+    P=np.array([[435.2046959714599, 0, 367.4517211914062, 0], [0, 435.2046959714599, 252.2008514404297, 0],
+                [0, 0, 1, 0]])), dict(
+    K=np.array([[457.587, 0.0, 379.999], [0.0, 456.134, 255.238], [0.0, 0.0, 1.0]]),
+    D=np.array([-0.28368365, 0.07451284, -0.00010473, -3.555907e-05, 0.0]),
+    R=np.array([[0.9999633526194376, -0.003625811871560086, 0.007755443660172947],
+                [0.003680398547259526, 0.9999684752771629, -0.007035845251224894],
+                [-0.007729688520722713, 0.007064130529506649, 0.999945173484644]]),
+    P=np.array([[435.2046959714599, 0, 367.4517211914062, -47.90639384423901],
+                [0, 435.2046959714599, 252.2008514404297, 0], [0, 0, 1, 0]]))]
 INT_FIELDS = [steps.FUSED_ACCEPT, steps.FUSED_INITIAL_OK, steps.FUSED_USED_MM,
               steps.FUSED_N_TRACKED, *range(steps.FUSED_GATES, steps.FUSED_GATES + 4),
               steps.FUSED_NM]
@@ -319,6 +364,8 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    host = build.build_host()
+    log(f"host library build (g++, zlib): {host['seconds']:.2f} s -> {host['path']}")
     info = build.build()
     log(f"build: {info['seconds']:.2f} s -> {info['path']}")
     for line in info["log"].splitlines():
@@ -711,9 +758,13 @@ def loop_stage_report(name: str, tr, reads: list, smi: str) -> list:
     return bad
 
 
-def phase_mono(scene: StepWallScene, smi: str) -> dict:
+def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     """Mono SLAM through the port's System at the default capacities (see
-    the module docstring). Returns the kernels' launches in the session."""
+    the module docstring). Returns the kernels' launches in the session,
+    and for the facade phase the finished map saved with System.save_map
+    into `work` (its path and the save's ms), the session's trajectory, the
+    true poses and the Sim3 alignment: host data only, so that no later
+    phase's peak memory counts this session."""
     poses = orbit_trajectory(MONO_FRAMES + 3, **MAP_POSES)
     frames = render_frames(scene, CAM, poses, device="cuda")
     system = System(CAM, orb=CFG, device="cuda")  # the default TrackerConfig: loop closing on
@@ -912,7 +963,13 @@ def phase_mono(scene: StepWallScene, smi: str) -> dict:
         f"{bf_ms:.3f} ms ({'relocalized' if bf_ok else 'FAILED'}); profiled: {n_bf} kernel launches, "
         f"device time {dev_bf / 1e3:.3f} ms of {wall_bf:.3f} ms wall. BoW against brute force: "
         f"{reloc_ms:.3f} against {bf_ms:.3f} ms, {n_launch} against {n_bf} launches")
-    return launches
+    path = f"{work}/mono_map.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.save_map(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    return launches, dict(path=path, save_ms=save_ms, traj=tr.export_trajectory(), poses=poses,
+                          align=(s, Ra, ta))
 
 
 def phase_stereo_kernels(scene: StepWallScene, smi: str) -> dict:
@@ -1460,6 +1517,225 @@ def phase_loop(smi: str, device: str = "cuda") -> dict:
     return dict(closed=closed, ms=ms)
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _wall_ms(fn, dev: torch.device, reps: int = 5):
+    """(fn()'s last result, the median wall ms of `reps` calls, the device
+    synchronized around each)."""
+    ms = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(ms)
+
+
+def _launches() -> dict:
+    return {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+
+
+def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: str = "cuda") -> dict:
+    """The facade and glue on the card (see the module docstring): map
+    once (phase_mono saved the map), localize later over frames of the mono
+    path rendered from `scene` again; the RGB-D TUM driver from PNGs on
+    disk with a live viewer; the map's renderers, plane detection and
+    rectification against the CPU; one frame under torch_trace. Its files
+    go to `work`. Returns the kernels' launches of the localized frames and
+    the driver's frames."""
+    from tpuslam_torch.examples import rgbd_tum
+    from tpuslam_torch.io.checkpoint import load_map
+    from tpuslam_torch.io.datasets import load_grayscale
+    from tpuslam_torch.io.rectify import init_rectify_map, remap_bilinear
+    from tpuslam_torch.io.settings import Settings
+    from tpuslam_torch.sfm.initializer import draw_picks
+    from tpuslam_torch.testing import write_tum_rgbd
+    from tpuslam_torch.utils.metrics import torch_trace
+    from tpuslam_torch.viz.ar import detect_plane
+    from tpuslam_torch.viz.render import topdown_layout
+    from tpuslam_torch.viz.server import LiveViewer
+
+    path, poses, (s, Ra, ta) = mono["path"], mono["poses"], mono["align"]
+    dev = torch.device(device)
+    frames = dict(zip(range(FACADE_LOC[0], FACADE_LOC[-1] + 2),
+                      render_frames(scene, CAM, poses[FACADE_LOC[0]:FACADE_LOC[-1] + 2], device=dev)))
+    bad = []
+
+    def centre_err(R, t, i) -> float:
+        Rg, tg = poses[i]
+        return float(np.linalg.norm(s * (-R.T @ t) @ Ra.T + ta - (-np.asarray(Rg).T @ np.asarray(tg))))
+
+    # Map once (phase_mono saved the session's map): load it into a fresh System.
+    loc = System(CAM, orb=CFG, device=dev)  # the default TrackerConfig: loop closing on
+    t0 = time.perf_counter()
+    loc.load_map(path)
+    _sync(dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    tr = loc.tracker
+    m0 = tr.map
+    n_kf0, pt_valid0 = int(m0.n_kf), m0.pt_valid.clone()
+    t0 = time.perf_counter()
+    m_cpu = load_map(path, device="cpu")
+    cpu_load_ms = (time.perf_counter() - t0) * 1e3
+    same_file = all(a.tobytes() == b.tobytes() for a, b in zip(map_to_numpy(m0), map_to_numpy(m_cpu)))
+    log(f"facade on {smi}: save_map of the mono map (K={m0.capacity_kf}, {m0.kf_obs_pt.shape[1]} keypoint "
+        f"slots, P={m0.capacity_pt}; {n_kf0} keyframes inserted, {int(pt_valid0.sum())} valid points) "
+        f"{mono['save_ms']:.1f} ms, {os.path.getsize(path) / 2**20:.2f} MB; load_map into a fresh System on the "
+        f"card {load_ms:.1f} ms, on the CPU {cpu_load_ms:.1f} ms, card and CPU maps "
+        f"{'bit-equal' if same_file else 'DIFFERENT'}")
+    if not same_file:
+        bad.append("the map loaded on the CPU differs from the card's")
+
+    # Localize later: frames of the mono path against the loaded map.
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    outs, ms = [], []
+    for i in FACADE_LOC:
+        _sync(dev)
+        t0 = time.perf_counter()
+        outs.append(loc.track_monocular(frames[i], i / 30.0))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == FACADE_LOC[0]:
+            reloc = (tr.reloc_path, tr.metrics.timer.samples["track.relocalize"][-1] * 1e3)
+    loc_launches = _launches()
+    first = FACADE_LOC[0]
+    err0 = centre_err(*outs[0], first) if outs[0] is not None else float("inf")
+    own = dict((fid, (R, t)) for fid, R, t, lost in mono["traj"] if not lost)
+    vs_own = (s * float(np.linalg.norm(-outs[0][0].T @ outs[0][1] + own[first][0].T @ own[first][1]))
+              if outs[0] is not None and first in own else float("nan"))
+    n_ok = sum(o is not None for o in outs)
+    errs = [centre_err(*o, i) for o, i in zip(outs, FACADE_LOC) if o is not None]
+    log(f"  localized {n_ok}/{len(outs)} frames ({n_ok / len(outs):.0%}) of the mono path "
+        f"{first}-{FACADE_LOC[-1]}: the first relocalized in {reloc[1]:.3f} ms by the {reloc[0]} branch "
+        f"(a fresh System's loop closer has no database), {err0:.4f} m from the truth (the session's "
+        f"Sim3 alignment), {vs_own:.4f} m from the session's own estimate of that frame; then "
+        f"{_ms(ms[1:])} per localized frame; centre error median "
+        f"{statistics.median(errs) if errs else float('nan'):.4f} m; launches {loc_launches}")
+    if not err0 < FACADE_RELOC_TOL:
+        bad.append(f"relocalized {err0:.4f} m from the truth")
+    if n_ok < FACADE_LOC_TRACKED * len(outs):
+        bad.append(f"localized {n_ok}/{len(outs)}")
+    if int(tr.map.n_kf) != n_kf0 or not torch.equal(tr.map.pt_valid, pt_valid0):
+        bad.append("localization changed the loaded map")
+    if min(loc_launches.values()) < len(outs):
+        bad.append(f"kernel launches {loc_launches} over {len(outs)} localized frames")
+
+    # One more localized frame under torch_trace.
+    with torch_trace(f"{work}/trace") as prof:
+        loc.track_monocular(frames[FACADE_LOC[-1] + 1], 99.0)
+        _sync(dev)
+    n_trace = sum(e.count for e in prof.key_averages()
+                  if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    log(f"  one localized frame under torch_trace: {n_trace} kernel launches, trace "
+        f"{os.path.basename(prof.trace_path)} {os.path.getsize(prof.trace_path) / 2**20:.2f} MB")
+    if not os.path.getsize(prof.trace_path) or (dev.type == "cuda" and n_trace == 0):
+        bad.append("torch_trace wrote no trace or saw no launch")
+
+    # Plane detection and the top-down layout on the loaded map, card and CPU.
+    R_c, t_c = outs[-1] if outs[-1] is not None else own[first]
+    centre = -R_c.T @ t_c
+    picks = draw_picks(50, 3, m_cpu.pt_valid, torch.Generator().manual_seed(0))
+    fits = {}
+    for name, m in (("card", tr.map), ("CPU", m_cpu)):
+        fits[name], fit_ms = _wall_ms(lambda m=m: detect_plane(m.pt_xyz, m.pt_valid, centre, picks=picks),
+                                      m.pt_xyz.device, reps=5 if m is tr.map else 1)
+        log(f"  detect_plane on the {name} ({m.capacity_pt} point slots, 50 hypotheses): {fit_ms:.3f} ms")
+    g, c = ([x.cpu() for x in fits[k]] for k in ("card", "CPU"))
+    ang = float(np.degrees(np.arccos(np.clip(float(g[1] @ c[1]), -1.0, 1.0))))
+    log(f"  plane: success {bool(c[0])}, {int(c[3].sum())} inliers on the CPU, {int(g[3].sum())} on the card; "
+        f"normals {ang:.4f} deg apart")
+    if not (ang < PLANE_TOL_DEG and torch.equal(g[3], c[3]) and bool(g[0]) == bool(c[0])):
+        bad.append(f"detect_plane differs on the card and the CPU ({ang:.4f} deg)")
+    traj = [(fid, R, t) for fid, R, t, lost in tr.export_trajectory() if not lost]
+    lays = {}
+    for name, m in (("card", tr.map), ("CPU", m_cpu)):
+        lays[name], lay_ms = _wall_ms(lambda m=m: topdown_layout(m, traj), m.pt_xyz.device,
+                                      reps=5 if m is tr.map else 1)
+        log(f"  topdown_layout on the {name}: {lay_ms:.3f} ms ({len(lays[name].edges)} covisibility edges)")
+    g, c = ([x.cpu() for x in lays[k]] for k in ("card", "CPU"))
+    d_px = max((float((a - b).abs().max()) for a, b in zip(g[:3], c[:3]) if len(a)), default=0.0)
+    log(f"  layout card vs CPU: edges {'equal' if torch.equal(g[3], c[3]) else 'DIFFERENT'}, "
+        f"max pixel difference {d_px:.2e}")
+    if not (torch.equal(g[3], c[3]) and d_px < LAYOUT_TOL):
+        bad.append(f"topdown_layout differs on the card and the CPU ({d_px:.2e} px)")
+
+    # EuRoC rectification of a 752x480 pair, card against CPU.
+    gen = np.random.default_rng(8)
+    pair = [torch.from_numpy(gen.uniform(0, 255, (480, 752)).astype(np.float32)) for _ in range(2)]
+    maps = [[torch.from_numpy(a) for a in init_rectify_map(b["K"], b["D"], b["R"], b["P"], 752, 480)]
+            for b in EUROC_RECT]
+    rect = [remap_bilinear(img, *mp) for img, mp in zip(pair, maps)]
+    dev_maps = [[a.to(dev) for a in mp] for mp in maps]
+    dev_pair = [img.to(dev) for img in pair]
+    rect_dev, remap_ms = _wall_ms(lambda: [remap_bilinear(img, *mp) for img, mp in zip(dev_pair, dev_maps)],
+                                  dev, reps=REPS)
+    d_rect = max(float((a.cpu() - b).abs().max()) for a, b in zip(rect_dev, rect))
+    log(f"  remap_bilinear of a 752x480 EuRoC pair on the card: {remap_ms:.3f} ms a pair; card vs CPU "
+        f"max difference {d_rect:.2e}")
+    if not d_rect < REMAP_TOL:
+        bad.append(f"remap_bilinear differs on the card and the CPU ({d_rect:.2e})")
+
+    # The RGB-D TUM driver from PNGs on disk, a live viewer attached.
+    scene = StepWallScene(np.random.default_rng(6), depths=RGBD_DEPTHS)
+    tum_poses = orbit_trajectory(FACADE_TUM_FRAMES, **RGBD_POSES)
+    tum = render_rgbd_frames(scene, TUM_CAM, tum_poses, device=dev)
+    t0 = time.perf_counter()
+    root = f"{work}/tum"
+    assoc = write_tum_rgbd(root, tum)
+    write_s = time.perf_counter() - t0
+    first_rgb = open(assoc).readline().split()[1]
+    g0 = load_grayscale(f"{root}/{first_rgb}")
+    written = np.clip(np.round(tum[0][0].cpu().numpy()), 0, 255)
+    settings = Settings(cam=TUM_CAM, orb=TUM_ORB, fps=30.0, th_depth_factor=40.0, depth_map_factor=1.0 / 5000.0)
+    viewer = LiveViewer(port=0)
+    update_ms = []
+    update = viewer.update
+
+    def timed_update(*a, **k):
+        _sync(dev)
+        t1 = time.perf_counter()
+        update(*a, **k)
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+
+    viewer.update = timed_update
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    try:
+        res = rgbd_tum.run(settings, root, assoc, f"{work}/CameraTrajectory.txt", device=dev, viewer=viewer,
+                           viewer_every=FACADE_VIEWER_EVERY)
+        drv_launches = _launches()
+        state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}/state", timeout=10).read())
+        n_updates = len(update_ms)
+        _, push_sites = count_syncs(res.system._push_viewer)  # 40 frames: a push is due
+    finally:
+        viewer.close()
+    fails, summary = depth_gates("facade driver", res.system.tracker.export_trajectory(), tum_poses,
+                                 FACADE_TUM_FRAMES)
+    bad += fails
+    log(f"  TUM RGB-D folder of {FACADE_TUM_FRAMES} frames (8-bit RGB and 16-bit depth PNGs, no PIL) written "
+        f"in {write_s:.1f} s; rgbd_tum.run on it: decode {_ms(res.decode_ms)} per frame (host), track "
+        f"{_ms(res.track_ms)} per frame; {summary}; the first frame decoded "
+        f"{'equal to' if np.array_equal(g0, written) else 'DIFFERENT from'} the array written")
+    log(f"  live viewer every {FACADE_VIEWER_EVERY} frames: {n_updates} updates, {_ms(update_ms[:n_updates])} each; "
+        f"one push {len(push_sites)} device->host reads, at {push_sites}; /state over loopback: "
+        f"{len(state['points'])} points, {len(state['kfs'])} keyframes, status '{state['status']}'; "
+        f"launches {drv_launches}")
+    if not np.array_equal(g0, written):
+        bad.append("the decoded first frame differs from the array written")
+    if not (state["points"] and state["kfs"]):
+        bad.append("/state holds no points or keyframes")
+    if min(drv_launches.values()) < FACADE_TUM_FRAMES:
+        bad.append(f"kernel launches {drv_launches} over {FACADE_TUM_FRAMES} driver frames")
+    if bad:
+        raise AssertionError(f"facade: {bad}")
+    return {k: loc_launches[k] + drv_launches[k] for k in loc_launches}
+
+
 def timed(name: str, fn, *args):
     """fn(*args), with the phase's wall time printed."""
     t0 = time.perf_counter()
@@ -1535,7 +1811,8 @@ def main() -> int:
     log(f"times on {smi}:")
     log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
     timed("map times", map_times, session, late, smi)
-    mono_launches = timed("mono SLAM", phase_mono, scene, smi)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # the mono map, the facade's files
+    mono_launches, mono = timed("mono SLAM", phase_mono, scene, smi, work.name)
     stereo_scene = StepWallScene(np.random.default_rng(5), **STEREO_SCENE)
     sk = timed("stereo kernels", phase_stereo_kernels, stereo_scene, smi)
     stereo = timed("stereo SLAM", phase_stereo, stereo_scene, smi)
@@ -1543,6 +1820,8 @@ def main() -> int:
     multi_launches = timed("MultiTracker", phase_multi, stereo_scene, smi)
     timed("place", phase_place, smi)
     timed("loop", phase_loop, smi)
+    facade_launches = timed("facade", phase_facade, smi, scene, mono, work.name)
+    work.cleanup()
     for name in err:
         err[name] = max(err[name], sk["err"][name])
 
@@ -1563,7 +1842,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[name] + map_launches[name] + mono_launches[name]
                       + stereo["launches"][name] + stereo["loc_launches"][name]
-                      + rgbd["launches"][name] + multi_launches[name]),
+                      + rgbd["launches"][name] + multi_launches[name] + facade_launches[name]),
          "launches_per_frame": statistics.median(d[name] for d in per_frame),
          "launches_per_stereo_frame": stereo["per_frame"][name],
          "launches_per_rgbd_frame": rgbd["per_frame"][name],

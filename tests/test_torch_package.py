@@ -28,6 +28,9 @@ from tpuslam_torch.convert import (
     map_to_torch,
 )
 from tpuslam_torch import _build, convert
+from tpuslam_torch.examples import (
+    ar_demo, mono_euroc, mono_kitti, mono_tum, rgbd_tum, run_synthetic, stereo_euroc, stereo_kitti)
+from tpuslam_torch.io import checkpoint, rectify
 from tpuslam_torch.mapstate import core as mapcore
 from tpuslam_torch.ops import orb as torb
 from tpuslam_torch.ops.fast import TILE_H, TILE_W, fast_nms, fast_nms_plain, fast_nms_pyramid, level_table
@@ -47,7 +50,7 @@ def test_import_pulls_in_no_jax():
         "import sys, pkgutil, importlib, tpuslam_torch\n"
         "for m in pkgutil.walk_packages(tpuslam_torch.__path__, 'tpuslam_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam', 'yaml'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam', 'yaml', 'PIL'))\n"
         "assert not bad, bad\n"
         "assert {'tpuslam_torch.mapstate.core', 'tpuslam_torch.pipeline.steps',\n"
         "        'tpuslam_torch.pipeline.tracker', 'tpuslam_torch.pipeline.system',\n"
@@ -57,7 +60,14 @@ def test_import_pulls_in_no_jax():
         "        'tpuslam_torch.pipeline.multi', 'tpuslam_torch.io.settings',\n"
         "        'tpuslam_torch.geometry.sim3', 'tpuslam_torch.place.vocabulary',\n"
         "        'tpuslam_torch.place.database', 'tpuslam_torch.place.evaluate',\n"
-        "        'tpuslam_torch.optim.pose_graph', 'tpuslam_torch.pipeline.loop_closing'} <= set(sys.modules)\n"
+        "        'tpuslam_torch.optim.pose_graph', 'tpuslam_torch.pipeline.loop_closing',\n"
+        "        'tpuslam_torch.io.checkpoint', 'tpuslam_torch.io.datasets', 'tpuslam_torch.io.rectify',\n"
+        "        'tpuslam_torch.io.live', 'tpuslam_torch.io.native', 'tpuslam_torch.viz.render',\n"
+        "        'tpuslam_torch.viz.ar', 'tpuslam_torch.viz.server', 'tpuslam_torch.examples._driver',\n"
+        "        'tpuslam_torch.examples.run_synthetic', 'tpuslam_torch.examples.mono_tum',\n"
+        "        'tpuslam_torch.examples.mono_kitti', 'tpuslam_torch.examples.mono_euroc',\n"
+        "        'tpuslam_torch.examples.stereo_kitti', 'tpuslam_torch.examples.stereo_euroc',\n"
+        "        'tpuslam_torch.examples.rgbd_tum', 'tpuslam_torch.examples.ar_demo'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -81,7 +91,9 @@ def test_cpu_tensors_take_the_plain_versions(rng):
 @pytest.mark.parametrize("fn", [
     convert.array_to_tensor, convert.features_to_torch, convert.pose_obs_to_torch,
     convert.frame_features_to_torch, convert.map_to_torch, convert.ba_problem_to_torch,
-    mapcore.make_empty_map, Tracker, System, MultiTracker,
+    mapcore.make_empty_map, Tracker, System, MultiTracker, checkpoint.load_map,
+    rectify.StereoRectifier, run_synthetic.run, mono_tum.run, mono_kitti.run, mono_euroc.run,
+    stereo_kitti.run, stereo_euroc.run, rgbd_tum.run, ar_demo.run,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -581,3 +593,93 @@ def test_depth_session_on_card_matches_cpu(sensor):
         if device == "cuda":
             assert fast_nms.launches == 12
             assert gather_patches.launches == (24 if sensor == "STEREO" else 12)
+
+
+def test_facade_entry_points_run_on_their_inputs_device(rng):
+    """detect_plane, remap_bilinear and topdown_layout take no device: they
+    run where their inputs are (here the CPU)."""
+    from tpuslam_torch.viz.ar import detect_plane
+    from tpuslam_torch.viz.render import topdown_layout
+
+    pts = torch.from_numpy(rng.normal(size=(80, 3)).astype(np.float32))
+    fit = detect_plane(pts, torch.ones(80, dtype=torch.bool), np.zeros(3),
+                       generator=torch.Generator().manual_seed(0))
+    assert all(x.device.type == "cpu" for x in fit)
+    img = torch.from_numpy(rng.uniform(0, 255, (6, 8)).astype(np.float32))
+    grid = torch.meshgrid(torch.arange(6.0), torch.arange(8.0), indexing="ij")
+    assert rectify.remap_bilinear(img, grid[1], grid[0]).device.type == "cpu"
+    lay = topdown_layout(mapcore.make_empty_map(4, 8, 16, "cpu"))
+    assert all(x.device.type == "cpu" for x in lay)
+
+
+@pytest.mark.cuda
+def test_native_build_works_under_noconftest(tmp_path, monkeypatch):
+    """The host library compiles from the package's sources with g++ and
+    zlib into a fresh build directory, and its PNG decoder reads back what
+    testing.png_bytes (no PIL) wrote."""
+    if not torch.cuda.is_available():
+        pytest.skip("runs with the card tests: the card machine's toolchain")
+    from tpuslam_torch.io.datasets import load_grayscale
+    from tpuslam_torch.testing import png_bytes
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    info = _build.build_host()
+    assert info["path"].startswith(str(tmp_path)) and info["seconds"] > 0
+    monkeypatch.undo()
+    gen = np.random.default_rng(0)
+    for a in (gen.integers(0, 256, (30, 40), dtype=np.uint8), gen.integers(0, 65536, (30, 40)).astype(np.uint16)):
+        p = tmp_path / "x.png"
+        p.write_bytes(png_bytes(a))
+        np.testing.assert_array_equal(load_grayscale(str(p)), a.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_loaded_map_localizes_on_card_as_on_cpu(tmp_path):
+    """A 14-frame stereo map (320x240, 400 features) saved on the card, then
+    loaded into a card System and a CPU System: both relocalize frame 7 by
+    brute force with the same picks (one seeded generator each), within
+    1 cm and 0.1 deg of each other, and the card's map does not change."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.geometry.camera import PinholeCamera
+    from tpuslam_torch.pipeline.system import SensorType
+    from tpuslam_torch.testing import StepWallScene, depth_session, orbit_trajectory, render_stereo_frames
+
+    cam = PinholeCamera(fx=350.0, fy=350.0, cx=160.0, cy=120.0, bf=42.0, width=320, height=240)
+    frames = render_stereo_frames(StepWallScene(np.random.default_rng(5)), cam, orbit_trajectory(14, step=0.05))
+    kw = dict(orb=ORBConfig(n_features=400), max_keyframes=20, max_points=5000)
+    build = System(cam, SensorType.STEREO, device="cuda", kf_max_frames=6, **kw)
+    depth_session(build, [(L.cuda(), R.cuda()) for L, R in frames])
+    path = str(tmp_path / "map.npz")
+    build.save_map(path)
+    poses = {}
+    for device in ("cpu", "cuda"):
+        system = System(cam, SensorType.STEREO, device=device, **kw)
+        system.load_map(path)
+        before = map_to_numpy(system.tracker.map)
+        L, R = frames[7]
+        poses[device] = system.track_stereo(L.to(device), R.to(device), 99.0)
+        assert poses[device] is not None and system.tracker.reloc_path == "brute_force", device
+        for name, a, b in zip(before._fields, map_to_numpy(system.tracker.map), before):
+            assert a.tobytes() == b.tobytes(), (device, name)
+    (Rc, tc), (Rg, tg) = poses["cpu"], poses["cuda"]
+    assert np.linalg.norm(-Rc.T @ tc + Rg.T @ tg) < 0.01
+    d = Rc.astype(np.float64).T @ Rg.astype(np.float64)
+    assert np.degrees(np.arcsin(min(1.0, np.linalg.norm([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0],
+                                                           d[1, 0] - d[0, 1]]) / 2))) < 0.1
+
+
+def test_torch_trace_writes_a_chrome_trace(tmp_path):
+    """torch_trace (jax_trace's counterpart) writes the block's profile as
+    a Chrome trace into its directory, and the profiler stays readable."""
+    import json
+
+    from tpuslam_torch.utils.metrics import torch_trace
+
+    with torch_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert prof.trace_path.startswith(str(tmp_path / "trace"))
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+    assert any("mm" in e.key for e in prof.key_averages())

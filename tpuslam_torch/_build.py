@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the package's CUDA kernels (csrc/*.cu), and its host
+library (csrc_host/*.cc), at first use.
 
 nvcc compiles every source into an object file, all of them at once in
 parallel, and links them into one shared library with a plain C interface,
@@ -7,6 +8,11 @@ seconds. The library lands in `_build/` beside this file, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises on a nonzero status.
+
+The host library (the PNG decoder, the prefetcher, the quadtree oracle,
+ATE/RPE and a CPU FAST+NMS; io/native.py binds it) is one g++ call over
+csrc_host/*.cc, linked against zlib, into the same `_build/`, keyed the same
+way. A failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
+CSRC_HOST = os.path.join(_HERE, "csrc_host")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+HOST_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared", "-pthread"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,19 +79,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _sources() -> list:
-    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(where: str = CSRC, pattern: str = "*.cu") -> list:
+    srcs = sorted(glob.glob(os.path.join(where, pattern)))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
+        raise RuntimeError(f"no sources {pattern} under {where}")
     return srcs
 
 
-def _lib_path(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(srcs, flags=NVCC_FLAGS, stem: str = "libtpuslam_torch") -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libtpuslam_torch_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
 def build() -> dict:
@@ -119,6 +127,28 @@ def build() -> dict:
         "seconds": time.perf_counter() - t0,
         "log": "".join(logs).strip(),
     }
+
+
+def build_host() -> dict:
+    """Compile and link csrc_host/*.cc with g++ (and zlib), unless an
+    up-to-date library exists. Returns {"path", "seconds", "log"}; raises if
+    g++ is missing or fails."""
+    srcs = _sources(CSRC_HOST, "*.cc")
+    path = _lib_path(srcs, HOST_FLAGS, "libtpuslam_host")
+    if os.path.exists(path):
+        return {"path": path, "seconds": 0.0, "log": "up to date"}
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host library needs a C++17 compiler and zlib")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, "lib.so")
+        out = subprocess.run([cxx, *HOST_FLAGS, *srcs, "-o", tmp, "-lz"], capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"g++ failed ({out.returncode}):\n{out.stderr}")
+        os.replace(tmp, path)
+    return {"path": path, "seconds": time.perf_counter() - t0, "log": out.stderr.strip()}
 
 
 @functools.cache

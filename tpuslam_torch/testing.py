@@ -3,6 +3,7 @@ make_texture, StepWallScene and orbit_trajectory (blur and rotations from
 this package), the inputs of a coherent tracking step, a tracking session
 over a real MapState (build_depth_session), rendered monocular, stereo and
 RGB-D frames (render_frames, render_stereo_frames, render_rgbd_frames), a
+TUM RGB-D folder of them written without PIL (png_bytes, write_tum_rgbd), a
 System session over them (mono_session, depth_session) and its ATE after a
 Sim3 or a rigid alignment (trajectory_ate), and a drifted loop map for loop
 closing (build_loop_map).
@@ -17,6 +18,9 @@ optimization with no inliers to test.
 
 from __future__ import annotations
 
+import os
+import struct
+import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -426,6 +430,47 @@ def render_rgbd_frames(scene: StepWallScene, cam: PinholeCamera, poses, device="
         raw = torch.clamp(torch.round(z.to(torch.float64) * depth_scale), 0, 65535)
         out.append((img.to(torch.float32), raw.cpu().numpy().astype(np.uint16)))
     return out
+
+
+def png_bytes(a: np.ndarray) -> bytes:
+    """A PNG file (standard library zlib, no PIL) of an (H, W) uint8 or
+    uint16 grey image or an (H, W, 3) uint8 RGB one, every row unfiltered."""
+    a = np.ascontiguousarray(a)
+    h, w = a.shape[:2]
+    color = 2 if a.ndim == 3 else 0
+    bits = 16 if a.dtype == np.uint16 else 8
+    rows = a.astype(">u2") if bits == 16 else a.astype(np.uint8)
+    raw = b"".join(b"\x00" + rows[r].tobytes() for r in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_tum_rgbd(root: str, frames, t0: float = 1305031102.175304) -> str:
+    """A TUM RGB-D sequence folder from render_rgbd_frames' (image, uint16
+    depth) pairs: rgb/*.png as 8-bit RGB with the grey image (rounded)
+    in all three channels, so any luma rule gives it back exactly;
+    depth/*.png as 16-bit grey; rgb.txt, depth.txt and an association
+    file, 30 frames a second. Returns the association file's path."""
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    rgb, depth, assoc = ["# color images"], ["# depth maps"], []
+    for i, (img, d) in enumerate(frames):
+        t = f"{t0 + i / 30.0:.6f}"
+        g = np.clip(np.round(np.asarray(img.cpu() if torch.is_tensor(img) else img)), 0, 255).astype(np.uint8)
+        for rel, a in ((f"rgb/{t}.png", np.stack([g, g, g], -1)), (f"depth/{t}.png", np.asarray(d, np.uint16))):
+            with open(os.path.join(root, rel), "wb") as f:
+                f.write(png_bytes(a))
+        rgb.append(f"{t} rgb/{t}.png")
+        depth.append(f"{t} depth/{t}.png")
+        assoc.append(f"{t} rgb/{t}.png {t} depth/{t}.png")
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", depth), ("associations.txt", assoc)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return os.path.join(root, "associations.txt")
 
 
 def _timed_session(system, track, frames, on_frame) -> list:
