@@ -118,6 +118,27 @@ Phases, any failure exits non-zero:
      LiveViewer attached (every 10 frames, /state read once over loopback):
      the RGB-D phase's gates, decode and track ms per frame, the viewer's ms
      and device->host reads per push.
+  parallel: the mono session again with async_mapping (mapping and loop
+     closing on a background thread with its own stream) under the mono
+     gates and drained by export_trajectory, its ms per frame kind beside
+     the synchronous session's, the job's ms on its thread, the keyframe
+     insertions that waited on a join, InterruptBA and the second local-BA
+     chunks skipped, synchronising calls per thread, peak memory; the
+     async global BA on the 240-keyframe loop map at the default
+     capacities (no drift, points moved by 2 cm): _schedule_gba returns at
+     once, the merge halves the mean reprojection error, a superseded run
+     leaves the map unchanged; 30 stereo pairs at the stereo phase's point
+     with mapping_process on the same card (the stereo gates, the worker's
+     BoW rows in the tracker's loop closer, the worker importing no jax,
+     bytes and ms per job for the copies, pickling and the pipe, the
+     worker's start-up, shutdown closing the process); two BA shards and
+     two map shards on the one card: both sharded solvers on a
+     synthetic_ba_problem (K=64, P=16,384, 64 observations a keyframe) and
+     on the loop map's global BA problem (and the tracker's own _global_ba
+     through its point-sharded path) against the single-device solver (R
+     within 1e-4, t and X within 1e-3), the bytes reduced per LM
+     iteration, and on phase 6's saved map the sharded covisibility and
+     projection search equal to the dense ones.
 The host library (csrc_host/*.cc, g++ and zlib) is built in phase 2 too.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} (the launches of every phase's main-path run, and the
@@ -126,12 +147,14 @@ stereo shapes' times); the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import urllib.request
@@ -143,8 +166,10 @@ import torch
 
 import tpuslam_torch._build as build
 from tpuslam_torch.convert import array_to_tensor, map_to_numpy, map_to_torch
-from tpuslam_torch.geometry.camera import PinholeCamera
-from tpuslam_torch.mapstate.core import FrameFeatures, update_point_normals
+from tpuslam_torch.geometry.camera import PinholeCamera, project
+from tpuslam_torch.geometry.se3 import se3_apply
+from tpuslam_torch.mapstate.core import FrameFeatures, covisibility_weights, update_point_normals
+from tpuslam_torch.matching.search import search_by_projection_points
 from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain, fast_nms_pyramid, fast_response
 from tpuslam_torch.ops.image import build_pyramid, pyramid_shapes
 from tpuslam_torch.ops.orb import (
@@ -155,6 +180,9 @@ from tpuslam_torch.ops.orb import (
     extract_orb_batched_atlas,
 )
 from tpuslam_torch.ops.patches import PSIZE, _gather_patches_cuda, gather_patches, gather_patches_plain
+from tpuslam_torch.optim.ba import bundle_adjustment
+from tpuslam_torch.parallel.dist_ba import distributed_bundle_adjustment, point_sharded_bundle_adjustment
+from tpuslam_torch.parallel.sharded_map import sharded_covisibility_weights, sharded_search_local_points
 from tpuslam_torch.ops.stereo import (
     _sad_refine_atlas,
     level_tables,
@@ -192,6 +220,7 @@ from tpuslam_torch.testing import (
     render_frames,
     render_rgbd_frames,
     render_stereo_frames,
+    synthetic_ba_problem,
     trajectory_ate,
 )
 
@@ -291,6 +320,23 @@ EUROC_RECT = [dict(
                 [-0.007729688520722713, 0.007064130529506649, 0.999945173484644]]),
     P=np.array([[435.2046959714599, 0, 367.4517211914062, -47.90639384423901],
                 [0, 435.2046959714599, 252.2008514404297, 0], [0, 0, 1, 0]]))]
+# Parallel paths: phase 6's mono session with mapping on a background
+# thread (the default TrackerConfig otherwise); the async global BA on the
+# loop map (no drift, points moved by 2 cm, as tests/test_async_mapping.py
+# does); a mapping process on the card at the stereo phase's point (the
+# transport then timed on PAR_TRANSPORT_JOBS more jobs of a warm worker);
+# two BA shards and two map shards on the one card, held to
+# tests/test_dist_ba.py's tolerances (R, t, X). The synthetic problem is
+# tools/bench_scaling.py's shape, K=64, P=16,384, 64 observations a
+# keyframe; its arc turns the last cameras away from the cloud (728 of its
+# 4096 observations lie behind their camera) and LM takes no step there,
+# so the solvers are also held on the loop map's global BA.
+PAR_STEREO_FRAMES, PAR_SHARDS = 30, 2
+PAR_TRANSPORT_JOBS = 3
+PAR_BA = dict(K=64, P=16_384, n_obs_per_kf=64)
+PAR_BA_ITERS = dict(iters=4, cg_iters=20)
+PAR_BA_TOL = (1e-4, 1e-3, 1e-3)
+PAR_SEARCH_KP = 1000  # keypoints of the searched frame
 INT_FIELDS = [steps.FUSED_ACCEPT, steps.FUSED_INITIAL_OK, steps.FUSED_USED_MM,
               steps.FUSED_N_TRACKED, *range(steps.FUSED_GATES, steps.FUSED_GATES + 4),
               steps.FUSED_NM]
@@ -595,11 +641,23 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
 
 
 def count_syncs(fn):
-    """(fn(), one "file:line (function)" per synchronising CUDA call it
-    made), from torch.cuda.set_sync_debug_mode's warnings. The site is the
+    """(fn(), sync_sites' list for the call)."""
+    with sync_sites() as sites:
+        out = fn()
+    return out, sites
+
+
+@contextlib.contextmanager
+def sync_sites():
+    """Yields the list, filled while the block runs, of one "file:line
+    (function)" per synchronising CUDA call, from
+    torch.cuda.set_sync_debug_mode's warnings. The site is the
     innermost frame of the port on the warning's stack, so a sync inside
     torch's own Python code is charged to the port's line that called it;
-    a sync with no frame of the port gives the innermost three frames."""
+    a sync with no frame of the port gives the innermost three frames. The
+    mode and the hook are process-wide: a sync made by another thread than
+    the main one (a background mapping job's) is prefixed with the
+    thread's name and a colon."""
     pkg = str(Path(__file__).resolve().parent / "tpuslam_torch")
     sites = []
 
@@ -610,7 +668,9 @@ def count_syncs(fn):
                  if not f.filename.endswith("warnings.py")]
         ours = [f for f in stack if f.filename.startswith(pkg)]
         where = ours[-1:] or stack[::-1][:3]
-        sites.append(" < ".join(f"{Path(f.filename).name}:{f.lineno} ({f.name})" for f in where))
+        th = threading.current_thread()
+        tag = "" if th is threading.main_thread() else f"{th.name}: "
+        sites.append(tag + " < ".join(f"{Path(f.filename).name}:{f.lineno} ({f.name})" for f in where))
 
     torch.cuda.synchronize()
     with warnings.catch_warnings():
@@ -619,10 +679,9 @@ def count_syncs(fn):
         torch.cuda.set_sync_debug_mode("warn")
         sites.clear()  # setting the mode reports a sync of its own
         try:
-            out = fn()
+            yield sites
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sites
 
 
 def _dev_time(e):
@@ -787,7 +846,7 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
 
     t0 = time.perf_counter()
     res = mono_session(system, frames[:MONO_FRAMES], on_frame=on_frame)
-    wall = time.perf_counter() - t0
+    wall = session_s = time.perf_counter() - t0
     launches = dict(rec[-1]["launches"])
     peak = torch.cuda.max_memory_allocated()  # after initialization
 
@@ -968,8 +1027,10 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     t0 = time.perf_counter()
     system.save_map(path)
     save_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = {k: [ms[i] for i, x in enumerate(kinds) if x["kind"] == k]
+               for k in ("motion model", "reference keyframe", "keyframe")}
     return launches, dict(path=path, save_ms=save_ms, traj=tr.export_trajectory(), poses=poses,
-                          align=(s, Ra, ta))
+                          align=(s, Ra, ta), ms_by_kind=by_kind, wall=session_s)
 
 
 def phase_stereo_kernels(scene: StepWallScene, smi: str) -> dict:
@@ -1736,6 +1797,369 @@ def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: 
     return {k: loc_launches[k] + drv_launches[k] for k in loc_launches}
 
 
+def _per_kind(rec: list, res: list) -> tuple:
+    kinds = frame_kinds(rec)
+    ms = [m for _, m in res]
+    return kinds, {k: [ms[i] for i, x in enumerate(kinds) if x["kind"] == k]
+                   for k in ("motion model", "reference keyframe", "keyframe")}
+
+
+def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
+    """Phase 6's mono session with async_mapping: the mono gates, then ms
+    per frame by kind and the session's wall beside the synchronous
+    session's (`sync`, phase 6 of this run), the mapping job's ms on its
+    thread, the keyframe insertions that waited on a join, InterruptBA,
+    reads per thread, peak memory. Returns the kernels' launches."""
+    poses = orbit_trajectory(MONO_FRAMES, **MAP_POSES)
+    frames = render_frames(scene, CAM, poses, device="cuda")
+    system = System(CAM, orb=CFG, device="cuda", async_mapping=True)
+    tr = system.tracker
+    tr.stage_sync = True  # the job's stage timers hold its stream's device time
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec, marks = [], []
+    record = session_recorder(tr, rec)
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    with sync_sites() as sites:
+        def on_frame(i, out):
+            record(i, out)
+            marks.append(len(sites))
+
+        t0 = time.perf_counter()
+        res = mono_session(system, frames, on_frame=on_frame)
+        wall = time.perf_counter() - t0
+        traj = tr.export_trajectory()  # adopts the job in flight
+    launches = dict(rec[-1]["launches"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kinds, by_kind = _per_kind(rec, res)
+    # Reads of the tracking thread per frame, less the harness's two stream
+    # syncs; the mapping thread's per job.
+    per_frame = [sum(1 for x in sites[a:b] if ": " not in x.split(" < ")[0] and "testing.py" not in x)
+                 for a, b in zip([0] + marks[:-1], marks)]
+    mapping = [x for x in sites if x.startswith("local-mapping")]
+    st, c = tr.metrics.timer.samples, tr.metrics.counters
+    jobs = [v * 1e3 for v in st.get("map.job", [])]
+    ok_at = [i for i, x in enumerate(kinds) if x["state"] == "OK"]
+    init = ok_at[0] if ok_at else None
+    m = tr.map
+    n_kf = int(m.kf_valid.sum())
+    mapped = int(((m.pt_first_kf >= 2) & m.pt_valid).sum())
+    ate, n_tracked, _ = trajectory_ate(traj, poses)
+    C = np.stack([-np.asarray(R).T @ np.asarray(t) for R, t in poses])
+    span = float(np.linalg.norm(C[-1] - C[0]))
+    after = MONO_FRAMES - 1 - init if init is not None else 0
+    tracked_after = sum(1 for fid, _, _, lost in traj if not lost and init is not None and fid > init)
+    log(f"async mono SLAM on {smi}: {MONO_FRAMES} frames in {wall:.1f} s (the synchronous session of "
+        f"phase 6: {sync['wall']:.1f} s), initialized at frame {init}, end state {tr.state.name}; {n_kf} valid "
+        f"keyframes ({tr._n_kf_host} inserted, {len(jobs)} mapping jobs), {int(m.pt_valid.sum())} valid points "
+        f"({mapped} made by mapping_front); tracked {tracked_after}/{after} after initialization; ATE "
+        f"{ate:.4f} m over a {span:.3f} m path ({ate / span:.2%}); peak memory allocated {peak:.3f} GiB")
+    log(f"  launches in the session: {launches}; frames by kind: "
+        f"{ {k: len(v) for k, v in by_kind.items()} }")
+    for k, v in by_kind.items():
+        log(f"  {k} frame: async {_ms(v)}; synchronous {_ms(sync['ms_by_kind'][k])}")
+    log(f"  the mapping job on its thread: {_ms(jobs)}; of which mapping_front "
+        f"{_ms([v * 1e3 for v in st.get('map.front', [])])}, local BA chunk 1 "
+        f"{_ms([v * 1e3 for v in st.get('map.local_ba1', [])])}, chunk 2 "
+        f"{_ms([v * 1e3 for v in st.get('map.local_ba2', [])])}, loop closing "
+        f"{_ms([v * 1e3 for v in st.get('map.loop', [])])} (the mapping stream synchronized at each stage's end)")
+    log(f"  keyframe insertions that waited on the job in flight: {c['map.insert_waits']}, waiting "
+        f"{_ms([v * 1e3 for v in st.get('map.insert_wait', [])])}; InterruptBA signalled {c['map.interrupts']} "
+        f"times, second local-BA chunks skipped {c['map.local_ba2_skipped']} of {len(jobs)} jobs")
+    log(f"  synchronising calls of the tracking thread per frame (less the harness's): median "
+        f"{statistics.median(per_frame)}, max {max(per_frame)}; of the mapping thread: {len(mapping)} in "
+        f"{len(jobs)} jobs (stage syncs included), e.g. {mapping[-8:]}")
+    bad = []
+    if init is None or init >= MONO_INIT_BY:
+        bad.append(f"initialized at frame {init}")
+    if tr.state != TrackingState.OK:
+        bad.append(f"ended in {tr.state.name}")
+    if tracked_after < MONO_TRACKED * after:
+        bad.append(f"tracked {tracked_after}/{after}")
+    if n_kf < 10 or mapped == 0:
+        bad.append(f"{n_kf} keyframes, {mapped} mapped points")
+    if not ate < MONO_ATE_SHARE * span:
+        bad.append(f"ATE {ate:.4f} >= {MONO_ATE_SHARE:.0%} of {span:.3f}")
+    if any(x["launches"][k] < 1 for x in kinds for k in launches):
+        bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if tr._mapping_future is not None:
+        bad.append("the mapping future was not drained by export_trajectory")
+    if tr.loop_closer.n_loops_closed:
+        bad.append(f"{tr.loop_closer.n_loops_closed} loops closed on a path that revisits nothing")
+    if len(st.get("map.loop", [])) != len(jobs):
+        bad.append(f"{len(st.get('map.loop', []))} loop stages in {len(jobs)} jobs")
+    system.shutdown()
+    if bad:
+        raise AssertionError(f"async mono SLAM: {bad}")
+    return launches
+
+
+def _mean_reprojection(m) -> float:
+    """Mean pixel error of every live observation of a LOOP_CAM map."""
+    has = (m.kf_obs_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    X = m.pt_xyz[m.kf_obs_pt.clamp(min=0).long()]
+    Xc = (m.kf_R[:, None] @ X[..., None])[..., 0] + m.kf_t[:, None]
+    err = torch.linalg.norm(project(LOOP_CAM, Xc) - m.kf_kp_xy, dim=-1)
+    return float(err[has].mean())
+
+
+def phase_async_gba(smi: str):
+    """The abortable global BA on the loop map at the default capacities:
+    _schedule_gba returns at once, the merge halves the mean reprojection
+    error, and a superseded generation leaves the map unchanged. Returns
+    the perturbed map."""
+    K, N, P = MAP["K"], MAP["N_cap"], MAP["P"]
+    rng = np.random.default_rng(3)
+    m, _, _ = build_loop_map(rng, n_kf=LOOP_KF, drift=0.0, max_kf=K, n_kp=N, max_pt=P, device="cuda")
+    # Move the points that lie 1 m or more in front of every camera seeing them.
+    has = (m.kf_obs_pt >= 0) & m.kf_valid[:, None]
+    pt = m.kf_obs_pt.clamp(min=0).long()
+    z = ((m.kf_R[:, None] @ m.pt_xyz[pt][..., None])[..., 0] + m.kf_t[:, None])[..., 2]
+    min_z = torch.full((P,), float("inf"), device="cuda").scatter_reduce(
+        0, pt[has], z[has], "amin")
+    noise = torch.from_numpy(rng.normal(0, 0.02, (P, 3)).astype(np.float32)).cuda()
+    m = m._replace(pt_xyz=torch.where((m.pt_valid & (min_z > 1.0))[:, None], m.pt_xyz + noise, m.pt_xyz))
+    tr = Tracker(TrackerConfig(cam=LOOP_CAM, max_keyframes=K, max_points=P, async_mapping=True,
+                               enable_loop_closing=False), device="cuda")
+    e0 = _mean_reprojection(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr._schedule_gba(m, iters=10)
+    ret_ms = (time.perf_counter() - t0) * 1e3
+    tr._gba_future.result()
+    job_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    m2 = tr._poll_gba(m)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    e1 = _mean_reprojection(m2)
+    tr._schedule_gba(m, iters=10)
+    f = tr._gba_future
+    tr._gba_generation += 1  # a newer closure supersedes the run
+    aborted = f.result() is None
+    m3 = tr._poll_gba(m)
+    tr.shutdown()
+    log(f"async global BA on {smi} ({LOOP_KF} keyframes, {int(m.pt_valid.sum())} points, capacities {K}/{N}/{P}): "
+        f"_schedule_gba returned in {ret_ms:.3f} ms, the job (2 chunks of 5 LM iterations on its own "
+        f"stream) took {job_ms:.1f} ms, the merge {merge_ms:.3f} ms; mean reprojection error "
+        f"{e0:.4f} -> {e1:.4f} px; a superseded run {'aborted at a chunk boundary' if aborted else 'finished'} "
+        f"and the map was {'unchanged' if m3 is m else 'CHANGED'}")
+    if out is not m or not e1 < 0.5 * e0 or m3 is not m:
+        raise AssertionError(f"async global BA: returned the map {out is m}, error {e0:.4f} -> {e1:.4f}, "
+                             f"superseded run left the map {m3 is m}")
+    return m
+
+
+def phase_mapping_process(scene: StepWallScene, smi: str) -> dict:
+    """Stereo SLAM at the stereo phase's point with mapping in a worker
+    process on the same card: the stereo gates, the worker's BoW rows in
+    the tracker's loop closer, bytes and ms per job, the worker's start-up,
+    and shutdown closing the process. Returns the kernels' launches."""
+    cam, cfg = KITTI_CAM, KITTI_ORB
+    poses = orbit_trajectory(PAR_STEREO_FRAMES, **STEREO_POSES)
+    frames = render_stereo_frames(scene, cam, poses, device="cuda")
+    system = System(cam, SensorType.STEREO, orb=cfg, device="cuda", mapping_process=True,
+                    mapping_process_platform="cuda", **STEREO_TRACKER)
+    tr = system.tracker
+    rm = tr._remote_mapper
+    proc = rm._proc
+    rec = []
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    t0 = time.perf_counter()
+    res = depth_session(system, frames, on_frame=session_recorder(tr, rec))
+    wall = time.perf_counter() - t0
+    launches = dict(rec[-1]["launches"])
+    traj = tr.export_trajectory()
+    kinds, by_kind = _per_kind(rec, res)
+    bad, summary = depth_gates("mapping process", traj, poses, PAR_STEREO_FRAMES)
+    lc = tr.loop_closer
+    mirrored = bool(lc._bow) and lc.voc is not None and all(
+        bool(lc.db.has[k]) and torch.equal(lc.db.words[k], b.words) for k, b in lc._bow.items())
+    n_session_jobs = len(rm.jobs)
+    # The transport of a warm worker: the final map's snapshot shipped
+    # PAR_TRANSPORT_JOBS more times (the results dropped).
+    for _ in range(PAR_TRANSPORT_JOBS):
+        rm.process(tr.map, tr._last_kf_idx, True)
+    jobs = rm.jobs[n_session_jobs:]
+
+    def med(key, worker=False):
+        return statistics.median((j["worker"] if worker else j)[key] for j in jobs) if jobs else float("nan")
+
+    log(f"stereo SLAM with a mapping process on {smi} (the worker on {rm.info['name']}, {rm.info['device']}; "
+        f"started in {rm.info['startup_s']:.2f} s, jax or tpuslam modules in it: {rm.info['foreign_modules']}): "
+        f"{PAR_STEREO_FRAMES} frames in {wall:.1f} s, {summary}; {tr._n_kf_host} keyframes, {n_session_jobs} jobs "
+        f"(the first: the job {rm.jobs[0]['worker']['compute_ms']:.1f} ms in the worker, "
+        f"{rm.jobs[0]['wait_ms']:.1f} ms waited for); "
+        f"BoW rows mirrored into the tracker's closer: {sorted(lc._bow)} ({'equal' if mirrored else 'MISSING'})")
+    for k, v in by_kind.items():
+        log(f"  {k} frame: {_ms(v)}")
+    if jobs:
+        log(f"  per job, {len(jobs)} more jobs of the final snapshot (medians): {med('bytes_out') / 2**20:.1f} MiB out, {med('bytes_in') / 2**20:.1f} MiB "
+            f"back; tracker side: device->host {med('d2h_ms'):.1f} ms, pickle {med('pickle_ms'):.1f} ms, pipe "
+            f"send {med('send_ms'):.1f} ms, the reply's pipe {med('recv_ms'):.1f} ms, unpickle "
+            f"{med('unpickle_ms'):.1f} ms, host->device {med('h2d_ms'):.1f} ms, waiting for the reply "
+            f"{med('wait_ms'):.1f} ms; worker side: pipe {med('recv_ms', True):.1f} ms, unpickle "
+            f"{med('unpickle_ms', True):.1f} ms, host->device {med('h2d_ms', True):.1f} ms, the job "
+            f"{med('compute_ms', True):.1f} ms, device->host with the BoW rows {med('d2h_ms', True):.1f} ms")
+    system.shutdown()
+    closed = proc.poll() is not None and tr._remote_mapper is None
+    log(f"  shutdown: the worker process {'closed' if closed else 'STILL RUNNING'} "
+        f"(exit code {proc.returncode})")
+    if kinds[0]["state"] != "OK" or tr.state != TrackingState.OK:
+        bad.append(f"first frame {kinds[0]['state']}, end {tr.state.name}")
+    if any(x["launches"][k] < 1 for x in kinds for k in launches):
+        bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if not n_session_jobs or n_session_jobs != tr.metrics.counters["frames.keyframe"]:
+        bad.append(f"{n_session_jobs} jobs for {tr.metrics.counters['frames.keyframe']} keyframes")
+    if not mirrored:
+        bad.append("the worker's BoW rows are not in the tracker's loop closer")
+    if rm.info["foreign_modules"] or not rm.info["device"].startswith("cuda"):
+        bad.append(f"the worker: {rm.info}")
+    if not closed:
+        bad.append("shutdown left the worker process running")
+    if bad:
+        raise AssertionError(f"mapping process: {bad}")
+    return launches
+
+
+def _sharded_ba(name: str, prob, cam, mesh, iters: dict) -> list:
+    """Both sharded solvers on `mesh` against the single-device solver on
+    one problem: times, the largest differences (held to PAR_BA_TOL), the
+    robust cost before and after (an unchanged cost means no LM step was
+    taken, so the equality says nothing), the bytes reduced per LM
+    iteration. Returns the failures."""
+    from tpuslam_torch.optim.ba import _edge_chi2
+
+    runs = {}
+    for kind, fn in (("single", lambda st: bundle_adjustment(cam, prob, **iters)),
+                     ("point-sharded", lambda st: point_sharded_bundle_adjustment(cam, prob, mesh, stats=st, **iters)),
+                     ("observation-parallel", lambda st: distributed_bundle_adjustment(cam, prob, mesh, stats=st,
+                                                                                       **iters))):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(stats)
+        torch.cuda.synchronize()
+        runs[kind] = (out, (time.perf_counter() - t0) * 1e3, stats)
+    ref, single_ms, _ = runs["single"]
+    v = prob.valid
+    c0 = float(_edge_chi2(cam, prob, prob.R, prob.t, prob.X)[v].mean())
+    log(f"  {name}: {int(v.sum())} edges over {prob.R.shape[0]} keyframes and {prob.X.shape[0]} points, "
+        f"{iters}; the single solver {single_ms:.1f} ms, mean edge chi2 {c0:.6g} -> {float(ref[3][v].mean()):.6g}")
+    bad = []
+    for kind in ("point-sharded", "observation-parallel"):
+        out, ms, stats = runs[kind]
+        errs = [float((a - b).abs().max()) for a, b in zip(out[:3], ref[:3])]
+        log(f"    {kind}, {len(mesh)} shards on {len(set(mesh))} card: {ms:.1f} ms; max |dR| {errs[0]:.2e}, "
+            f"|dt| {errs[1]:.2e}, |dX| {errs[2]:.2e}; {stats['reductions']} reductions, "
+            f"{stats['bytes_per_iteration'] / 1024:.2f} KiB reduced per LM iteration")
+        if not all(e < tol for e, tol in zip(errs, PAR_BA_TOL)):
+            bad.append(f"{name}: {kind} BA differs from the single-device solver: {errs}")
+    return bad
+
+
+def phase_sharded(smi: str, map_path: str, loop_map) -> None:
+    """Two BA shards and two map shards on the one card: both sharded
+    solvers against the single-device solver on the synthetic problem
+    (PAR_BA) and on the global BA of the loop map (the tracker's own
+    problem, through its point-sharded path); the sharded covisibility
+    and search on phase 6's saved map against the dense ones, equal
+    exactly."""
+    from tpuslam_torch.io.checkpoint import load_map
+
+    mesh = [torch.device("cuda", 0)] * PAR_SHARDS  # the one card, shared
+    cam, prob = synthetic_ba_problem(np.random.default_rng(0), device="cuda", **PAR_BA)
+    bad = _sharded_ba(f"synthetic_ba_problem({PAR_BA})", prob, cam, mesh, PAR_BA_ITERS)
+    # The loop map's global BA: the tracker's problem, solved on one device
+    # and through its point-sharded path (_ba_mesh set as dist_ba_devices
+    # would set it on a machine with two cards).
+    K, P = loop_map.capacity_kf, loop_map.capacity_pt
+    single = Tracker(TrackerConfig(cam=LOOP_CAM, max_keyframes=K, max_points=P, enable_loop_closing=False),
+                     device="cuda")
+    probs = []
+    run_ba = single._run_ba
+    single._run_ba = lambda p, iters: probs.append(p) or run_ba(p, iters)
+    g1 = single._global_ba(loop_map, iters=4)
+    # Its points fill the first slots, so contiguous blocks of the 200,000
+    # slots put every edge in shard 0; the solvers are held on the problem
+    # with the point capacity cut to the live slots too, where both shards
+    # work.
+    prob = probs[0]
+    n_live = int(prob.pt.max()) + 1
+    per_shard = torch.bincount(prob.pt.long() // (P // PAR_SHARDS), minlength=PAR_SHARDS).tolist()
+    bad += _sharded_ba(f"the {LOOP_KF}-keyframe loop map's global BA (edges per point block {per_shard})",
+                       prob, LOOP_CAM, mesh, dict(iters=4))
+    live = prob._replace(X=prob.X[:n_live], fixed_pt=prob.fixed_pt[:n_live])
+    per_shard = torch.bincount(live.pt.long() // -(-n_live // PAR_SHARDS), minlength=PAR_SHARDS).tolist()
+    bad += _sharded_ba(f"the same, the points cut to the {n_live} live slots (edges per point block {per_shard})",
+                       live, LOOP_CAM, mesh, dict(iters=4))
+    sharded = Tracker(single.cfg, device="cuda")
+    sharded._ba_mesh = mesh
+    g2 = sharded._global_ba(loop_map, iters=4)
+    errs = [float((getattr(g2, f) - getattr(g1, f)).abs().max()) for f in ("kf_R", "kf_t", "pt_xyz")]
+    log(f"    Tracker._global_ba through its point-sharded path (200,000 slots) against its single-device "
+        f"one: max |dR| {errs[0]:.2e}, |dt| {errs[1]:.2e}, |dX| {errs[2]:.2e}")
+    if not all(e < tol for e, tol in zip(errs, PAR_BA_TOL)):
+        bad.append(f"the tracker's sharded global BA differs: {errs}")
+
+    m = load_map(map_path, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = covisibility_weights(m)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sharded_w = sharded_covisibility_weights(m, mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k = int(torch.argmax(torch.where(m.kf_valid, m.kf_frame_id, -1)))
+    R, t = m.kf_R[k], m.kf_t[k]
+    kp = (m.kf_kp_xy[k, :PAR_SEARCH_KP], m.kf_kp_desc[k, :PAR_SEARCH_KP], m.kf_kp_level[k, :PAR_SEARCH_KP],
+          m.kf_kp_angle[k, :PAR_SEARCH_KP], m.kf_kp_valid[k, :PAR_SEARCH_KP])
+    got = sharded_search_local_points(CAM, m, mesh, R, t, *kp)
+    P = m.capacity_pt
+    pc = se3_apply(R, t, m.pt_xyz)
+    want = search_by_projection_points(
+        project(CAM, pc), m.pt_desc, m.pt_valid & (pc[:, 2] > 0.1), torch.full((P,), 15.0, device="cuda"),
+        torch.zeros(P, dtype=torch.int32, device="cuda"), torch.full((P,), 7, dtype=torch.int32, device="cuda"), *kp)
+    ok = want[2]
+    same_search = (torch.equal(got[2], ok) and torch.equal(got[0][ok], want[0][ok])
+                   and torch.equal(got[1][ok], want[1][ok]))
+    same_covis = torch.equal(sharded_w, dense)
+    log(f"  phase 6's map ({int(m.kf_valid.sum())} keyframes, {int(m.pt_valid.sum())} points in {P} slots) on "
+        f"{PAR_SHARDS} shards: covisibility {'equal' if same_covis else 'DIFFERENT'} to the dense "
+        f"({(t2 - t1) * 1e3:.1f} ms against {(t1 - t0) * 1e3:.1f} ms, {int((dense > 0).sum())} nonzero weights); "
+        f"the search of keyframe {k}'s {PAR_SEARCH_KP} keypoints over every point "
+        f"{'equal' if same_search else 'DIFFERENT'} to the dense ({int(ok.sum())} matches)")
+    if not same_covis:
+        bad.append("sharded covisibility differs from the dense")
+    if not same_search or int(ok.sum()) == 0:
+        bad.append(f"sharded search differs from the dense or matched nothing ({int(ok.sum())})")
+    if bad:
+        raise AssertionError(f"sharded: {bad}")
+
+
+def phase_parallel(smi: str, scene: StepWallScene, stereo_scene: StepWallScene, mono: dict) -> dict:
+    """The parallel paths (see the module docstring). Returns the kernels'
+    launches of the async mono session and the mapping-process session."""
+    t0 = time.perf_counter()
+    a = phase_async_mono(scene, smi, mono)
+    log(f"  (async mono: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    loop_map = phase_async_gba(smi)
+    log(f"  (async global BA: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    b = phase_mapping_process(stereo_scene, smi)
+    log(f"  (mapping process: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log(f"sharded BA and map on {smi}:")
+    phase_sharded(smi, mono["path"], loop_map)
+    log(f"  (sharded: {time.perf_counter() - t0:.1f} s)")
+    return {k: a[k] + b[k] for k in a}
+
+
 def timed(name: str, fn, *args):
     """fn(*args), with the phase's wall time printed."""
     t0 = time.perf_counter()
@@ -1821,6 +2245,7 @@ def main() -> int:
     timed("place", phase_place, smi)
     timed("loop", phase_loop, smi)
     facade_launches = timed("facade", phase_facade, smi, scene, mono, work.name)
+    parallel_launches = timed("parallel", phase_parallel, smi, scene, stereo_scene, mono)
     work.cleanup()
     for name in err:
         err[name] = max(err[name], sk["err"][name])
@@ -1842,7 +2267,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[name] + map_launches[name] + mono_launches[name]
                       + stereo["launches"][name] + stereo["loc_launches"][name]
-                      + rgbd["launches"][name] + multi_launches[name] + facade_launches[name]),
+                      + rgbd["launches"][name] + multi_launches[name] + facade_launches[name]
+                      + parallel_launches[name]),
          "launches_per_frame": statistics.median(d[name] for d in per_frame),
          "launches_per_stereo_frame": stereo["per_frame"][name],
          "launches_per_rgbd_frame": rgbd["per_frame"][name],

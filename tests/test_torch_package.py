@@ -9,6 +9,7 @@ card test runs on a machine without it:
 
 import ctypes
 import inspect
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +37,7 @@ from tpuslam_torch.ops import orb as torb
 from tpuslam_torch.ops.fast import TILE_H, TILE_W, fast_nms, fast_nms_plain, fast_nms_pyramid, level_table
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
 from tpuslam_torch.ops.patches import PSIZE, gather_patches, gather_patches_plain
+from tpuslam_torch.parallel import dist_ba, mapping_worker
 from tpuslam_torch.pipeline.multi import MultiTracker
 from tpuslam_torch.pipeline.system import System
 from tpuslam_torch.pipeline.tracker import Tracker
@@ -67,7 +69,9 @@ def test_import_pulls_in_no_jax():
         "        'tpuslam_torch.examples.run_synthetic', 'tpuslam_torch.examples.mono_tum',\n"
         "        'tpuslam_torch.examples.mono_kitti', 'tpuslam_torch.examples.mono_euroc',\n"
         "        'tpuslam_torch.examples.stereo_kitti', 'tpuslam_torch.examples.stereo_euroc',\n"
-        "        'tpuslam_torch.examples.rgbd_tum', 'tpuslam_torch.examples.ar_demo'} <= set(sys.modules)\n"
+        "        'tpuslam_torch.examples.rgbd_tum', 'tpuslam_torch.examples.ar_demo',\n"
+        "        'tpuslam_torch.parallel', 'tpuslam_torch.parallel.dist_ba', 'tpuslam_torch.parallel.sharded_map',\n"
+        "        'tpuslam_torch.parallel.mapping_worker'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -93,7 +97,8 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     convert.frame_features_to_torch, convert.map_to_torch, convert.ba_problem_to_torch,
     mapcore.make_empty_map, Tracker, System, MultiTracker, checkpoint.load_map,
     rectify.StereoRectifier, run_synthetic.run, mono_tum.run, mono_kitti.run, mono_euroc.run,
-    stereo_kitti.run, stereo_euroc.run, rgbd_tum.run, ar_demo.run,
+    stereo_kitti.run, stereo_euroc.run, rgbd_tum.run, ar_demo.run, dist_ba.make_mesh,
+    mapping_worker.RemoteMappingWorker,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -683,3 +688,104 @@ def test_torch_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
     assert any("mm" in e.key for e in prof.key_averages())
+
+
+@pytest.mark.cuda
+def test_async_mono_session_on_card_under_the_stream_sanitizer():
+    """The 14-frame monocular session with mapping on the background thread
+    and its own stream, on the card, in a child process under PyTorch's
+    CUDA stream sanitizer (TORCH_CUDA_SANITIZER=1, set before torch is
+    imported): no unsynchronized access between the tracking, mapping and
+    global-BA streams, and the session's accuracy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    code = (
+        "import numpy as np, torch\n"
+        "from tpuslam_torch.geometry.camera import PinholeCamera\n"
+        "from tpuslam_torch.ops.orb import ORBConfig\n"
+        "from tpuslam_torch.pipeline.system import System\n"
+        "from tpuslam_torch.testing import StepWallScene, mono_session, orbit_trajectory, render_frames, trajectory_ate\n"
+        "cam = PinholeCamera(fx=350.0, fy=350.0, cx=160.0, cy=120.0, width=320, height=240)\n"
+        "poses = orbit_trajectory(14, step=0.045)\n"
+        "frames = render_frames(StepWallScene(np.random.default_rng(11)), cam, poses, device='cuda')\n"
+        "system = System(cam, orb=ORBConfig(n_features=500), device='cuda', max_keyframes=16, max_points=4096,\n"
+        "                kf_max_frames=10, async_mapping=True)\n"
+        "res = mono_session(system, frames)\n"
+        "tr = system.tracker\n"
+        "ate, n, _ = trajectory_ate(tr.export_trajectory(), poses)\n"
+        "jobs = len(tr.metrics.timer.samples['map.job'])\n"
+        "system.shutdown()\n"
+        "torch.cuda.synchronize()\n"
+        "from torch.cuda._sanitizer import cuda_sanitizer\n"
+        "assert cuda_sanitizer is not None and cuda_sanitizer.enabled, 'the sanitizer is not on'\n"
+        "print('session', tr.state.name, n, ate, jobs, tr.metrics.counters['frames.keyframe'])\n"
+    )
+    env = dict(os.environ, TORCH_CUDA_SANITIZER="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=1500, env=env)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "CSAN" not in out.stderr and "data race" not in out.stderr.lower(), out.stderr[-4000:]
+    _, state, n, ate, jobs, kfs = out.stdout.split()[-6:]
+    assert state == "OK" and int(n) >= 8 and float(ate) < 0.03 and int(jobs) == int(kfs) >= 1, out.stdout
+
+
+@pytest.mark.cuda
+def test_sharded_solvers_on_card_match_cpu():
+    """Both sharded solvers with 2 shards on the card (the first two cards,
+    or the one card twice): against the single-device solver on the card
+    at tests/test_dist_ba.py's tolerances (R 1e-4, t and X 1e-3), and
+    against the same solver with 2 shards of the CPU at
+    test_bundle_adjusters_on_card_match_cpu's (poses 1e-3, points 1e-2:
+    the card's sums come in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpuslam_torch.optim.ba import bundle_adjustment
+    from tpuslam_torch.testing import synthetic_ba_problem
+
+    mesh = dist_ba.make_mesh(2) if torch.cuda.device_count() >= 2 else [torch.device("cuda", 0)] * 2
+    cam, prob = synthetic_ba_problem(np.random.default_rng(0), K=6, P=128, n_obs_per_kf=64)
+    gprob = type(prob)(*(x.cuda() for x in prob))
+    single = bundle_adjustment(cam, gprob, iters=4, cg_iters=20)
+    for solve in (dist_ba.point_sharded_bundle_adjustment, dist_ba.distributed_bundle_adjustment):
+        ref = solve(cam, prob, ["cpu"] * 2, iters=4, cg_iters=20)
+        got = solve(cam, gprob, mesh, iters=4, cg_iters=20)
+        for a, b, c, tol, tol_cpu in zip(got[:3], single[:3], ref[:3], (1e-4, 1e-3, 1e-3), (1e-3, 1e-3, 1e-2)):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a, b, rtol=0, atol=tol)
+            torch.testing.assert_close(a.cpu(), c, rtol=0, atol=tol_cpu)
+
+
+@pytest.mark.cuda
+def test_mapping_process_job_on_card_equals_the_job_in_process():
+    """The first keyframe job of a 14-frame stereo session on the card, run
+    by a worker process on the card and by a fresh tracker in process on
+    the card: the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from tpuslam_torch.geometry.camera import PinholeCamera
+    from tpuslam_torch.pipeline.system import SensorType
+    from tpuslam_torch.testing import StepWallScene, depth_session, keep_mapping_inputs, orbit_trajectory, render_stereo_frames
+
+    cam = PinholeCamera(fx=350.0, fy=350.0, cx=160.0, cy=120.0, bf=42.0, width=320, height=240)
+    frames = render_stereo_frames(StepWallScene(np.random.default_rng(5)), cam, orbit_trajectory(14, step=0.05),
+                                  device="cuda")
+    system = System(cam, SensorType.STEREO, orb=ORBConfig(n_features=400), device="cuda", max_keyframes=20,
+                    max_points=5000, kf_max_frames=6)
+    kept = keep_mapping_inputs(system.tracker, jobs={0})
+    depth_session(system, frames)
+    m, ki = kept[0]
+    cfg = dataclasses.replace(system.tracker.cfg, mapping_process=False)
+    ref = Tracker(cfg, device="cuda")
+    ref._depth_mode = True
+    want = ref._mapping_compute(m, ki)
+    worker = mapping_worker.RemoteMappingWorker(cfg, device="cuda")
+    try:
+        got, _, rows, voc = worker.process(m, ki, True)
+    finally:
+        worker.close()
+    assert worker.info["device"].startswith("cuda") and worker.info["foreign_modules"] == []
+    assert rows and voc is not None
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name

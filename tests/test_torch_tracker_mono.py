@@ -199,14 +199,33 @@ def test_keyframe_slots_are_recycled_at_capacity(scenario):
     assert n >= 12 and ate < 0.05
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(async_mapping=True), "A12"),
-    (dict(mapping_process=True), "A12"),
-    (dict(dist_ba_devices=2), "A12"),
+@pytest.mark.parametrize("kw", [
+    dict(async_mapping=True),
+    dict(mapping_process=True, mapping_process_platform="cpu"),
+    dict(dist_ba_devices=2),
 ])
-def test_unported_config_flags_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Tracker(TrackerConfig(cam=CAM, **{**KW, **kw}), device="cpu")
+def test_parallel_config_flags_run(kw, scenario):
+    """Background mapping, a mapping process and point-sharded BA (the CPU
+    twice) each initialize, track and map a few frames, then shut down."""
+    scene, poses = scenario
+    system = System(CAM, orb=ORBConfig(n_features=500), device="cpu", **{**KW, **kw})
+    tr = system.tracker
+    try:
+        res = mono_session(system, render_frames(scene, CAM, poses[:8]))
+        assert res[-1][0] is not None and tr.state == TrackingState.OK
+        assert tr.metrics.counters["frames.keyframe"] >= 1
+        ate, n, _ = trajectory_ate(tr.export_trajectory(), poses)
+        assert tr._mapping_future is None and n >= 6 and ate < 0.03
+    finally:
+        system.shutdown()
+    assert tr._remote_mapper is None and tr._mapping_pool is None
+
+
+def test_dist_ba_devices_beyond_the_visible_cards_raise():
+    visible = torch.cuda.device_count()
+    n = max(2, visible + 1)
+    with pytest.raises(ValueError, match=f"dist_ba_devices={n} but only {visible} devices are visible"):
+        Tracker(TrackerConfig(cam=CAM, **{**KW, "dist_ba_devices": n}), device="cuda")
 
 
 def test_tracker_defaults_match_jax():
@@ -221,8 +240,11 @@ def test_tracker_defaults_match_jax():
     tf = {f.name: f.default for f in dataclasses.fields(TrackerConfig)}
     assert set(tf) - set(jf) == {"seed"}
     for name, default in jf.items():
-        if name != "orb":
+        if name not in ("orb", "mapping_process_platform"):
             assert tf[name] == default, name
+    # The one stated exception: the mapping process runs on the card (a
+    # card takes both processes; one process owns a TPU chip).
+    assert jf["mapping_process_platform"] == "cpu" and tf["mapping_process_platform"] == "cuda"
     assert dataclasses.asdict(tf["orb"]) == dataclasses.asdict(jf["orb"])
     assert inspect.signature(Tracker).parameters["device"].default == "cuda"
     assert inspect.signature(System).parameters["device"].default == "cuda"

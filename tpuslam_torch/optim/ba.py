@@ -1,6 +1,5 @@
 """Bundle adjustment: batched Levenberg-Marquardt with a Schur-complement
-reduced camera system. Port of tpuslam/optim/ba.py (the single-device
-solvers; the point-sharded form is not ported yet).
+reduced camera system. Port of tpuslam/optim/ba.py.
 
 `bundle_adjustment` solves the reduced system S dx = rhs by block-Jacobi
 preconditioned conjugate gradients, applying S = Hpp - W Hll^-1 W^T
@@ -13,11 +12,15 @@ Both run their LM and CG iterations as Python loops with no host read: the
 accept/reject of each LM step and the CG step sizes are `torch.where`s on
 the device. Problems are fixed-capacity tensors; fixed or invalid poses and
 points are masked out of the Jacobians and their blocks pinned to identity.
+
+`bundle_adjustment` also runs as one shard's body of a distributed solve
+(parallel/dist_ba.py), the counterpart of the JAX package's `axis_name`:
+its `reduce` hook sums each partial normal-equation term over the shards.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -120,14 +123,20 @@ def _huber_weight(chi2, delta_sq, use_huber: bool):
     return torch.clamp(torch.sqrt(delta_sq / torch.clamp(chi2, min=1e-12)), max=1.0)
 
 
-def _lm_accept(cam, prob, R, t, X, R_new, t_new, X_new, lam, active0, delta_sq, use_huber):
+def _lm_accept(cam, prob, R, t, X, R_new, t_new, X_new, lam, active0, delta_sq, use_huber,
+               reduce=None):
     """One LM accept/reject on the device: the step is taken where the robust
-    cost falls; lambda halves on success and quadruples on failure."""
+    cost falls; lambda halves on success and quadruples on failure. With a
+    `reduce` hook both costs are summed over the shards in one reduction."""
     def total(R, t, X):
         r, _, _, _ = _edge_terms(cam, R, t, X, prob)
         return torch.sum(_robust(torch.sum(r * r, -1) * prob.inv_sigma2, delta_sq, use_huber) * active0)
 
-    ok = total(R_new, t_new, X_new) < total(R, t, X)
+    if reduce is None:
+        ok = total(R_new, t_new, X_new) < total(R, t, X)
+    else:
+        new, old = reduce(torch.stack([total(R_new, t_new, X_new), total(R, t, X)]), "pose").unbind()
+        ok = new < old
     return (torch.where(ok, R_new, R), torch.where(ok, t_new, t), torch.where(ok, X_new, X),
             torch.where(ok, lam * 0.5, lam * 4.0))
 
@@ -137,10 +146,24 @@ def _edge_chi2(cam, prob, R, t, X):
     return torch.sum(r * r, dim=-1) * prob.inv_sigma2
 
 
+Reduce = Callable[[torch.Tensor, str], torch.Tensor]
+
+
 def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_huber: bool = True,
-                      cg_iters: int = 40, lam0: float = 1e-4):
+                      cg_iters: int = 40, lam0: float = 1e-4, reduce: Optional[Reduce] = None):
     """`iters` LM steps, each solving the reduced camera system by `cg_iters`
-    block-Jacobi PCG iterations. Returns (R, t, X, edge_chi2)."""
+    block-Jacobi PCG iterations. Returns (R, t, X, edge_chi2).
+
+    reduce: None on one device. Otherwise the call is one shard of a
+    distributed solve: prob holds this shard's edges (and, point-sharded,
+    its block of points), the poses are replicated, and reduce(x, side)
+    returns the sum of the shards' partial tensors x on this shard's
+    device. Side "pose" is the robust cost, the packed (K, 6, 8) Hpp / bp
+    / coupling and the coupling in S v (the JAX package's three psum
+    sites); side "point" is Hll with bl, S v's point sums and the
+    back-substitution's W^T dx, which the hook leaves alone when each shard
+    owns its points and sums when the edges are split over replicated
+    points. Every shard then walks the same pose iterates."""
     K, P = prob.R.shape[0], prob.X.shape[0]
     dev = prob.X.device
     kf, pt = prob.kf.long(), prob.pt.long()
@@ -172,6 +195,9 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
 
         Hll = scatter_sum(P, pt, Hll_e, by_pt)
         bl = scatter_sum(P, pt, bl_e, by_pt)
+        if reduce is not None:
+            acc_l = reduce(torch.cat([Hll.reshape(P, 9), bl], dim=-1), "point")
+            Hll, bl = acc_l[:, :9].reshape(P, 3, 3), acc_l[:, 9:]
         # LM damping plus a trace-relative floor (see the JAX package: rank-2
         # single-observation point blocks), fixed/empty blocks pinned.
         tr3 = (Hll[:, 0, 0] + Hll[:, 1, 1] + Hll[:, 2, 2])[:, None, None]
@@ -184,6 +210,8 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
         z0 = (Hll_inv @ bl[..., None])[..., 0]
         coup_e = (W_e @ z0[pt][..., None])[..., 0]
         packed = scatter_sum(K, kf, torch.cat([Hpp_e, bp_e[..., None], coup_e[..., None]], dim=-1), by_kf)
+        if reduce is not None:
+            packed = reduce(packed, "pose")
         Hpp, bp, coup = packed[..., :6], packed[..., 6], packed[..., 7]
         tr6 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)[:, None, None]
         Hpp = Hpp + (lam + 1e-5 * tr6 + 1e-10) * eye6
@@ -193,8 +221,12 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
 
         def S_matvec(vk):
             ysum = scatter_sum(P, pt, (W_t @ vk[kf][..., None])[..., 0], by_pt)
+            if reduce is not None:
+                ysum = reduce(ysum, "point")
             z = (Hll_inv @ ysum[..., None])[..., 0]
             coupling = scatter_sum(K, kf, (W_e @ z[pt][..., None])[..., 0], by_kf)
+            if reduce is not None:
+                coupling = reduce(coupling, "pose")
             return (Hpp @ vk[..., None])[..., 0] - coupling
 
         rhs = bp - torch.where(kf_pinned[:, None], 0.0, coup)
@@ -218,13 +250,15 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
 
         # Back-substitute the points: dx_pt = Hll^-1 (bl - W^T dx_pose).
         hlp_dx = scatter_sum(P, pt, (W_t @ dx_pose[kf][..., None])[..., 0], by_pt)
+        if reduce is not None:
+            hlp_dx = reduce(hlp_dx, "point")
         dx_pt = (Hll_inv @ (bl - hlp_dx)[..., None])[..., 0]
         dx_pose = torch.where(kf_pinned[:, None], 0.0, dx_pose)
         dx_pt = torch.where(pt_pinned[:, None], 0.0, dx_pt)
 
         R_new, t_new = se3_compose(*se3_exp(dx_pose), R, t)
         R, t, X, lam = _lm_accept(cam, prob, R, t, X, R_new, t_new, X + dx_pt, lam,
-                                  active0, delta_sq, use_huber)
+                                  active0, delta_sq, use_huber, reduce)
     # Exact rotations written back: map poses feed every later composition.
     R = so3_project(R)
     return R, t, X, _edge_chi2(cam, prob, R, t, X)

@@ -29,3 +29,13 @@ def solve_spd(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for i in reversed(range(n)):
         x[..., i] = (y[..., i] - (L[..., i + 1 :, i] * x[..., i + 1 :]).sum(-1)) / L[..., i, i]
     return x
+
+
+def load_cuda_linalg(device) -> None:
+    """Load torch's CUDA linear-algebra library now, from the calling
+    thread. It loads lazily at the first call of a solver (inv, solve, svd,
+    eigh, ...), and that load is not thread-safe: two threads making their
+    first such call at once fail ("lazy wrapper should be called at most
+    once"). Call it before starting threads that may; a no-op off the card."""
+    if torch.device(device).type == "cuda":
+        torch.linalg.inv_ex(torch.eye(3, device=device))

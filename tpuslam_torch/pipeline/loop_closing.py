@@ -148,7 +148,7 @@ class LoopCloser:
         with self.metrics.stage(name):
             yield
             if self.stage_sync and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                torch.cuda.current_stream(dev).synchronize()  # this thread's stream only
 
     def _draw_picks(self, n_hyp: int, size: int, valid: torch.Tensor) -> torch.Tensor:
         """The Sim3 RANSAC's index sets (128 x 3), from the closer's generator."""

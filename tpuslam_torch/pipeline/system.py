@@ -128,7 +128,8 @@ class System:
         self._timestamps = {}
 
     def shutdown(self):
-        """Stop the tracker and close the viewer; the trajectory exports
+        """Finish the background mapping and global BA, close the mapping
+        process and the viewer (System::Shutdown); the trajectory exports
         stay valid."""
         self.tracker.shutdown()
         if self._viewer is not None:
@@ -159,6 +160,7 @@ class System:
         `tracker.reloc_path`). The loaded keyframes are not enrolled in a
         database. The file's capacities must be the tracker's."""
         tr = self.tracker
+        tr._drain()  # a mapping job in flight must not land on the loaded map
         m = checkpoint.load_map(path, device=tr.device)
         want = (tr.cfg.max_keyframes, tr.kp_capacity, tr.cfg.max_points)
         got = (m.capacity_kf, m.kf_obs_pt.shape[1], m.capacity_pt)
@@ -192,7 +194,9 @@ class System:
 
     def save_keyframe_trajectory_tum(self, path: str):
         """TUM format over the surviving keyframes in creation order
-        (System::SaveKeyFrameTrajectoryTUM)."""
+        (System::SaveKeyFrameTrajectoryTUM), the mapping job in flight
+        adopted and a finished global BA merged first."""
+        self.tracker._drain()
         m = self.tracker.map
         valid = m.kf_valid.cpu().numpy()
         fid = m.kf_frame_id.cpu().numpy()

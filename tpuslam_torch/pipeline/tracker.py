@@ -7,11 +7,27 @@ extraction (stereo: both images in one batch, then stereo matching; RGB-D:
 the depth image sampled at each keypoint) -> (two-view initialization, or
 one keyframe from the depths | the fused tracking step) -> NeedNewKeyFrame
 -> LocalMapping (mapping_front), two chunks of local BA and loop closing
-(detection, and on a loop the correction and global BA), synchronously on
-each keyframe -> relocalization when LOST, from the BoW database's
-keyframe candidates first. A depth sensor's keyframes
-add map points from their close depths, and in localization mode its
-frames also track visual-odometry points made from the last frame's depths.
+(detection, and on a loop the correction and global BA) on each keyframe
+-> relocalization when LOST, from the BoW database's keyframe candidates
+first. A depth sensor's keyframes add map points from their close depths,
+and in localization mode its frames also track visual-odometry points made
+from the last frame's depths.
+
+Mapping runs synchronously on each keyframe by default. With
+`async_mapping` it runs on a background thread (the reference's
+LocalMapping and LoopClosing threads): tracking goes on against the
+published snapshot and adopts the job's map at a frame boundary, one job in
+flight; a wanted keyframe the busy mapper blocks signals InterruptBA, which
+skips the job's second local-BA chunk; global BA after a loop closure runs
+on a third thread, in chunks that a newer closure aborts, and its result is
+merged into the map as it stands then. With `mapping_process` the mapping
+thread ships each snapshot to a worker process
+(parallel/mapping_worker.py). With `dist_ba_devices >= 2` global and local
+BA run point-sharded over a mesh of devices (parallel/dist_ba.py). On a
+card each background thread has its own CUDA stream: it waits for the
+publishing stream before it reads a snapshot, synchronizes its stream
+before it returns, and what it made is marked with the reading stream
+(`record_stream`) when it is adopted.
 
 The device is the tracker's (`device`, "cuda" unless the caller asks for
 the CPU). A steady-state frame makes one packed device->host fetch beyond
@@ -19,16 +35,15 @@ the fused step's own verdict read; keyframe slots are assigned on the host,
 so insertion never reads the device watermark. Random hypotheses (two-view
 and PnP RANSAC) come from a torch.Generator the tracker owns, seeded from
 its config, through `_draw_picks`.
-
-Not ported yet, and refused with NotImplementedError: background or
-multi-process mapping and the distributed bundle adjuster (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import enum
+import threading
 from typing import Optional
 
 import numpy as np
@@ -51,10 +66,12 @@ from tpuslam_torch.mapstate.core import (
 from tpuslam_torch.matching.search import match_nn_ratio, search_for_initialization
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb
 from tpuslam_torch.optim.ba import BAProblem, bundle_adjustment
+from tpuslam_torch.optim.linalg import load_cuda_linalg
 from tpuslam_torch.pipeline import steps
 from tpuslam_torch.pipeline._index import scatter_last
 from tpuslam_torch.pipeline.loop_closing import LoopCloser
-from tpuslam_torch.place.vocabulary import sparse_bow_vector
+from tpuslam_torch.place.database import SparseBow, SparseKeyFrameDatabase
+from tpuslam_torch.place.vocabulary import sparse_bow_vector, vocabulary_from_arrays
 from tpuslam_torch.sfm.initializer import draw_picks, initialize_two_view
 from tpuslam_torch.sfm.pnp import pnp_ransac
 from tpuslam_torch.utils.metrics import Metrics
@@ -69,8 +86,11 @@ class TrackingState(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
-    """The JAX package's TrackerConfig, every field and default, plus the
-    seed of the tracker's hypothesis generator."""
+    """The JAX package's TrackerConfig, every field and default but one,
+    plus the seed of the tracker's hypothesis generator. The exception:
+    the mapping process runs on the card by default (a card takes both
+    processes; the JAX package kept its worker on the CPU because one
+    process owns a TPU chip)."""
 
     cam: PinholeCamera
     orb: ORBConfig = ORBConfig()
@@ -99,22 +119,18 @@ class TrackerConfig:
     th_depth_factor: float = 40.0
     depth_map_factor: float = 1.0
     enable_loop_closing: bool = True
+    # Mapping and loop closing on a background thread; in a worker process
+    # (which implies the thread) on mapping_process_platform, "cuda" or "cpu".
     async_mapping: bool = False
     mapping_process: bool = False
-    mapping_process_platform: str = "cpu"
+    mapping_process_platform: str = "cuda"
     # TrackLocalMap local-subset cap (0 = 16384 when max_points > 16384).
     local_map_max_pts: int = 0
+    # >= 2: global and local BA point-sharded over that many devices (a
+    # CUDA tracker's first cards, a CPU tracker's CPU repeated).
     dist_ba_devices: int = 0
     # Seed of the torch.Generator that draws the RANSAC hypotheses.
     seed: int = 0
-
-
-def _unported(cfg: TrackerConfig) -> Optional[str]:
-    if cfg.async_mapping or cfg.mapping_process:
-        return "async_mapping / mapping_process: background and multi-process mapping (ROADMAP A12)"
-    if cfg.dist_ba_devices >= 2:
-        return "dist_ba_devices >= 2: the point-sharded bundle adjuster (ROADMAP A12)"
-    return None
 
 
 def pad_feats(feats: FrameFeatures, cap: int) -> FrameFeatures:
@@ -143,11 +159,23 @@ class Tracker:
     """Single-session SLAM tracker: monocular, stereo or RGB-D."""
 
     def __init__(self, config: TrackerConfig, device="cuda"):
-        why = _unported(config)
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
+        if config.mapping_process_platform not in ("cuda", "cpu"):
+            raise ValueError(f"mapping_process_platform must be 'cuda' or 'cpu', "
+                             f"not {config.mapping_process_platform!r}")
         self.cfg = config
         self.device = torch.device(device)
+        # The BA mesh (dist_ba_devices >= 2): a CUDA tracker's first cards,
+        # a CPU tracker's CPU repeated.
+        self._ba_mesh = None
+        if config.dist_ba_devices >= 2:
+            n = config.dist_ba_devices
+            if self.device.type == "cuda":
+                visible = torch.cuda.device_count()
+                if visible < n:
+                    raise ValueError(f"dist_ba_devices={n} but only {visible} devices are visible")
+                self._ba_mesh = [torch.device("cuda", i) for i in range(n)]
+            else:
+                self._ba_mesh = [self.device] * n
         self.state = TrackingState.NO_IMAGES_YET
         # Keyframes hold 2 x n_features keypoints: monocular initialization
         # extracts twice the features and the two bootstrap keyframes keep them.
@@ -177,7 +205,47 @@ class Tracker:
         self.loop_closer: Optional[LoopCloser] = None
         if config.enable_loop_closing:
             self.loop_closer = self._new_loop_closer(None)
+        # Background mapping (one job in flight, SetAcceptKeyFrames) and the
+        # abortable global BA: a generation counter plays mnFullBAIdx, and a
+        # result of a superseded generation is discarded.
+        self._mapping_pool = self._gba_pool = None
+        self._mapping_future = self._gba_future = None
+        self._gba_generation = 0
+        # InterruptBA (mbAbortBA): set when a keyframe is wanted while the
+        # mapper is busy; the job then skips its second local-BA chunk.
+        self._mapping_interrupt = threading.Event()
+        self._map_stream = self._gba_stream = None
+        self._remote_mapper = None
+        if config.async_mapping or config.mapping_process:
+            self._mapping_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="local-mapping")
+            self._gba_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="global-ba")
+            if self.device.type == "cuda":
+                self._map_stream = torch.cuda.Stream(self.device)
+                self._gba_stream = torch.cuda.Stream(self.device)
+                load_cuda_linalg(self.device)  # its lazy load is not thread-safe
+        if config.mapping_process:
+            # The worker owns the loop-closing state and runs global BA
+            # inline; this tracker's closer mirrors its BoW rows.
+            from tpuslam_torch.parallel.mapping_worker import RemoteMappingWorker
+
+            self._remote_mapper = RemoteMappingWorker(config, device=config.mapping_process_platform)
         self._reset_tracking()
+
+    def __getstate__(self):
+        """copy.deepcopy (and pickle) take an idle tracker's state without
+        its background machinery (threads, streams, the interrupt event,
+        the mapping process): the copy maps synchronously."""
+        state = dict(self.__dict__)
+        for k in ("_mapping_pool", "_gba_pool", "_mapping_future", "_gba_future", "_map_stream",
+                  "_gba_stream", "_remote_mapper", "_mapping_interrupt"):
+            state[k] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._mapping_interrupt = threading.Event()
 
     def _new_loop_closer(self, voc) -> LoopCloser:
         lc = LoopCloser(self.cfg.max_keyframes, fix_scale=False, voc=voc)
@@ -224,10 +292,50 @@ class Tracker:
 
     @contextlib.contextmanager
     def _stage(self, name: str):
+        """Time a stage; with stage_sync, synchronize the calling thread's
+        stream at its end (not the device: a mapping stage must not wait
+        for tracking)."""
         with self.metrics.stage(name):
             yield
             if self.stage_sync and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                torch.cuda.current_stream(self.device).synchronize()
+
+    def _ready_event(self):
+        """An event on the calling thread's stream (None on the CPU): a
+        background job's stream waits on it before it reads what the caller
+        published."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @contextlib.contextmanager
+    def _on_stream(self, stream, ready):
+        """A background job's work on its own stream: after the publisher's
+        work (`ready`), and finished when the block ends (the stream
+        synchronized), so what it returns is complete and what it read may
+        be freed."""
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            try:
+                yield
+            finally:
+                stream.synchronize()
+
+    def _hand_over(self, *tensors):
+        """Mark tensors another stream made as used on the calling thread's
+        stream, so that once freed their memory is not reused while this
+        stream's kernels may still read them."""
+        if self._map_stream is None:
+            return
+        s = torch.cuda.current_stream(self.device)
+        for x in tensors:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                x.record_stream(s)
 
     def _mono_features(self, f) -> FrameFeatures:
         """FrameFeatures of one image's ORBFeatures: undistorted xy, no depth."""
@@ -352,17 +460,101 @@ class Tracker:
         return m._replace(kf_R=R, kf_t=t, pt_xyz=X)
 
     def _run_ba(self, prob: BAProblem, iters: int):
-        """The single-device solver (the point-sharded one is refused at
-        construction)."""
-        return bundle_adjustment(self.cfg.cam, prob, iters=iters)
+        """The single-device solver, or with a mesh the point-sharded one
+        (point blocks and their edges per device, the pose system summed
+        over the shards): both reach the same stationary points."""
+        if self._ba_mesh is None:
+            return bundle_adjustment(self.cfg.cam, prob, iters=iters)
+        from tpuslam_torch.parallel.dist_ba import point_sharded_bundle_adjustment
+
+        return point_sharded_bundle_adjustment(self.cfg.cam, prob, self._ba_mesh, iters=iters,
+                                               cg_iters=self.cfg.local_ba_cg_iters)
 
     def _local_ba(self, m: MapState, center_kf: int, iters: int = 8) -> MapState:
+        """Local BA around keyframe center_kf: steps.local_bundle_adjustment
+        on one device; with a mesh the same covisibility window over all
+        K*N observation slots, solved point-sharded, then the same chi2
+        outlier detach (5.991 mono / 7.815 stereo)."""
         cfg = self.cfg
-        return steps.local_bundle_adjustment(
-            cfg.cam, m, center_kf, self.inv_sigma2, window=cfg.local_ba_window,
-            n_levels=cfg.orb.n_levels, iters=iters,
-            max_edges=cfg.local_ba_max_edges or 32 * cfg.orb.n_features,
-            active_max=cfg.local_ba_active_max)
+        if self._ba_mesh is None:
+            return steps.local_bundle_adjustment(
+                cfg.cam, m, center_kf, self.inv_sigma2, window=cfg.local_ba_window,
+                n_levels=cfg.orb.n_levels, iters=iters,
+                max_edges=cfg.local_ba_max_edges or 32 * cfg.orb.n_features,
+                active_max=cfg.local_ba_active_max)
+        K, N = m.kf_obs_pt.shape
+        kfi, pti, uvr, has, fixed_kf, fixed_pt = steps.build_local_ba_problem(m, center_kf, cfg.local_ba_window)
+        lvl = torch.clamp(m.kf_kp_level.reshape(-1), 0, self.inv_sigma2.shape[0] - 1).long()
+        prob = BAProblem(R=m.kf_R, t=m.kf_t, X=m.pt_xyz, kf=kfi, pt=pti, uvr=uvr,
+                         inv_sigma2=self.inv_sigma2[lvl], valid=has & m.pt_valid[pti.long()],
+                         fixed_kf=fixed_kf, fixed_pt=fixed_pt)
+        R, t, X, chi2 = self._run_ba(prob, iters=iters)
+        bad = prob.valid & (chi2 > torch.where(uvr[:, 2] >= 0, 7.815, 5.991))
+        obs = torch.where(bad, -1, m.kf_obs_pt.reshape(-1))
+        return m._replace(kf_R=R, kf_t=t, pt_xyz=X, kf_obs_pt=obs.reshape(K, N))
+
+    # ------------------------------------------- global BA (async, abortable)
+
+    def _gba_job(self, m_snap: MapState, gen: int, iters: int, ready):
+        """Global BA over a map snapshot on the GBA thread, in chunks of 5 LM
+        iterations (`iters` rounded up to a multiple); a newer generation
+        aborts it between chunks (mbStopGBA). Returns (R, t, X, gen, the
+        snapshot's keyframe frame ids, validity and point watermark), or
+        None when aborted."""
+        chunk = 5
+        with self._on_stream(self._gba_stream, ready):
+            mm = m_snap
+            done = 0
+            while done < iters:
+                if gen != self._gba_generation:
+                    return None
+                mm = self._global_ba(mm, iters=chunk)
+                done += chunk
+            return mm.kf_R, mm.kf_t, mm.pt_xyz, gen, m_snap.kf_frame_id, m_snap.kf_valid, m_snap.n_pt
+
+    def _schedule_gba(self, m: MapState, iters: int = 10) -> MapState:
+        """Global BA for a freshly corrected loop: synchronous without the
+        background threads, else handed to the GBA thread (a running one is
+        superseded by the generation bump and stops at its next chunk) and
+        the map returned as it is."""
+        self._gba_generation += 1
+        if self._gba_pool is None:
+            return self._global_ba(m, iters=iters)
+        self._gba_future = self._gba_pool.submit(self._gba_job, m, self._gba_generation, iters,
+                                                 self._ready_event())
+        return m
+
+    def _poll_gba(self, m: MapState) -> MapState:
+        """Merge a finished global BA into the map as it stands (the
+        spanning-tree propagation of LoopClosing::RunGlobalBundleAdjustment):
+        snapshot keyframes, matched by frame id (a recycled slot holds
+        another keyframe), take the optimized poses; later keyframes follow
+        the newest snapshot keyframe; points made after the snapshot keep
+        their camera coordinates in their reference keyframe. A superseded
+        generation leaves the map unchanged. No device->host read."""
+        f = self._gba_future
+        if f is None or not f.done():
+            return m
+        self._gba_future = None
+        res = f.result()
+        if res is None:
+            return m
+        R_g, t_g, X_g, gen, snap_fid, snap_valid, n_pt_s = res
+        if gen != self._gba_generation:
+            return m
+        self._hand_over(R_g, t_g, X_g, snap_fid, snap_valid, n_pt_s)
+        K = m.capacity_kf
+        anchor = torch.argmax(torch.where(snap_valid, snap_fid, -1))
+        R_post, t_post = se3_compose(*se3_compose(m.kf_R, m.kf_t, *se3_inverse(m.kf_R[anchor], m.kf_t[anchor])),
+                                     R_g[anchor], t_g[anchor])
+        pre_k = (m.kf_frame_id == snap_fid)[:, None]
+        R_new = torch.where(pre_k[..., None], R_g, R_post)
+        t_new = torch.where(pre_k, t_g, t_post)
+        ref = torch.clamp(m.pt_ref_kf, 0, K - 1).long()
+        Xc = se3_apply(m.kf_R[ref], m.kf_t[ref], m.pt_xyz)
+        X_post = se3_apply(*se3_inverse(R_new[ref], t_new[ref]), Xc)
+        pre_p = (torch.arange(m.capacity_pt, device=m.pt_xyz.device) < n_pt_s)[:, None]
+        return m._replace(kf_R=R_new, kf_t=t_new, pt_xyz=torch.where(pre_p, X_g, X_post))
 
     # ------------------------------------------------------------- tracking
 
@@ -418,7 +610,9 @@ class Tracker:
                      img: Optional[torch.Tensor] = None) -> bool:
         """The steady-state frame: the fused step (from the image when `img`
         is given) and one packed fetch. A motion-model estimate that
-        TrackLocalMap rejects is retried through the reference keyframe."""
+        TrackLocalMap rejects is retried through the reference keyframe. A
+        finished background mapping job is adopted first."""
+        self._poll_mapping()
         if self.localization_mode and self._depth_mode:
             return self._track_frame_localization(feats, frame_id)
         cfg = self.cfg
@@ -503,17 +697,21 @@ class Tracker:
         return False
 
     def _need_new_keyframe(self, n_tracked: int, frame_id: int, gates) -> bool:
-        """NeedNewKeyFrame with synchronous mapping, so LocalMapping is
-        always idle (the reference's c1b holds whenever kf_min_frames have
-        passed, and nothing is ever interrupted): not right after a
-        relocalization on an established map; then the cadence (c1a
-        kf_max_frames, c1b kf_min_frames) or, for a depth sensor, weak
+        """NeedNewKeyFrame, the full policy: not right after a relocalization
+        on an established map; then the cadence (c1a kf_max_frames; c1b
+        kf_min_frames with LocalMapping idle) or, for a depth sensor, weak
         tracking (c1c: under a quarter of the reference's points, or the
         close-point pressure need_close: < 100 close points tracked and > 70
         untracked), and the reference ratio (0.4 below two keyframes, else
         kf_ref_ratio, or kf_ref_ratio_depth for a depth sensor) or
-        need_close, with more than 15 tracked points. `gates` is the
-        keyframe_gates pack, already on the host."""
+        need_close, with more than 15 tracked points. With synchronous
+        mapping the mapper is always idle. A wanted keyframe that a busy
+        mapper blocks signals InterruptBA; while it is busy a depth sensor
+        still inserts (through the join in _create_keyframe), monocular
+        only at the c1a hard limit (the reference drops the keyframe;
+        dropping it forever when mapping is slower than the camera would
+        end in LOST). `gates` is the keyframe_gates pack, already on the
+        host."""
         cfg = self.cfg
         if self.localization_mode:
             return False
@@ -522,16 +720,32 @@ class Tracker:
             return False
         ref_matches = int(gates[1])
         depth = self._depth_mode
+        idle = self._mapping_future is None or self._mapping_future.done()
         need_close = depth and gates[2] < 100 and gates[3] > 70
         if n_kf < 2:
             th_ref = 0.4
         else:
             th_ref = cfg.kf_ref_ratio_depth if depth else cfg.kf_ref_ratio
         c1a = self._frames_since_kf >= cfg.kf_max_frames
-        c1b = self._frames_since_kf >= cfg.kf_min_frames
+        c1b = self._frames_since_kf >= cfg.kf_min_frames and idle
         c1c = depth and (n_tracked < 0.25 * ref_matches or need_close)
         c2 = (n_tracked < th_ref * ref_matches or need_close) and n_tracked > 15
-        return bool((c1a or c1b or c1c) and c2)
+        if not ((c1a or c1b or c1c) and c2):
+            if not idle and c2 and self._frames_since_kf >= cfg.kf_min_frames:
+                self._signal_mapping_interrupt()
+            return False
+        if idle:
+            return True
+        self._signal_mapping_interrupt()
+        return bool(depth or c1a)
+
+    def _signal_mapping_interrupt(self):
+        """InterruptBA: the in-flight job skips its optional work (the
+        second local-BA chunk); a mapping process gets it over its pipe."""
+        self.metrics.inc("map.interrupts")
+        self._mapping_interrupt.set()
+        if self._remote_mapper is not None:
+            self._remote_mapper.interrupt()
 
     # ------------------------------------------------- keyframes and slots
 
@@ -540,6 +754,14 @@ class Tracker:
         if n < self.kp_capacity:
             feats = self._pad_feats(feats)
             obs = torch.cat([obs, obs.new_full((self.kp_capacity - n,), -1)])
+        # Back-pressure: one mapping job in flight; its map is adopted before
+        # the keyframe is inserted on top of it.
+        if self._mapping_future is not None and not self._mapping_future.done():
+            self.metrics.inc("map.insert_waits")
+            with self.metrics.stage("map.insert_wait"):
+                self._join_mapping()
+        else:
+            self._join_mapping()
         slot = None
         if self._n_kf_host >= self.map.capacity_kf:
             slot = self._recycle_kf_slot()
@@ -552,6 +774,14 @@ class Tracker:
         if self._depth_mode:
             m = self._add_depth_points(m, ki, feats, R, t)
         self.metrics.inc("frames.keyframe")
+        if self._mapping_pool is not None:
+            # Publish the snapshot and hand the mapping work to the
+            # background thread; tracking goes on against the snapshot.
+            self.map = m
+            self._last_kf_idx = ki
+            self._frames_since_kf = 0
+            self._mapping_future = self._mapping_pool.submit(self._mapping_job, m, ki, self._ready_event())
+            return
         self.map = self._mapping_compute(m, ki)
         self._apply_pt_remap()
         self._last_kf_idx = ki
@@ -647,13 +877,78 @@ class Tracker:
             obs = self._last_obs
             self._last_obs = torch.where(obs >= 0, r[obs.clamp(0, r.shape[0] - 1).long()], obs)
 
+    # ------------------------------------------------- mapping (sync/async)
+
+    def _mapping_job(self, m: MapState, ki: int, ready):
+        """One keyframe's mapping on the mapping thread, on its own stream:
+        _mapping_compute here, or the worker process's. Returns (map, ki)."""
+        with self.metrics.stage("map.job"), self._on_stream(self._map_stream, ready):
+            if self._remote_mapper is None:
+                return self._mapping_compute(m, ki), ki
+            m2, pt_remap, bow_rows, voc_blob = self._remote_mapper.process(m, ki, self._depth_mode)
+            if pt_remap is not None:
+                self._pending_pt_remap = pt_remap
+            self._apply_bow_feedback(bow_rows, voc_blob)
+            return m2, ki
+
+    def _apply_bow_feedback(self, bow_rows, voc_blob):
+        """Mirror the mapping process's keyframe BoW rows (slot, frame id,
+        words, weights) into this tracker's loop closer, with its vocabulary
+        (shipped once, in the npz layout), so that relocalization keeps its
+        BoW candidates: the reference's Tracking queries the shared
+        KeyFrameDatabase."""
+        lc = self.loop_closer
+        if lc is None or (not bow_rows and voc_blob is None):
+            return
+        if voc_blob is not None and lc.voc is None:
+            lc.voc = vocabulary_from_arrays(voc_blob, self.device)
+            lc._tried_default = True
+        if lc.voc is None or not bow_rows:
+            return
+        if lc.db is None:
+            lc.db = SparseKeyFrameDatabase(lc.voc.n_words, lc.max_keyframes, bow_rows[0][2].shape[0],
+                                           device=self.device)
+        for slot, fid, words, weight in bow_rows:
+            bow = SparseBow(torch.from_numpy(words).to(self.device), torch.from_numpy(weight).to(self.device))
+            lc._bow[slot] = bow
+            lc.db.add(slot, bow)
+            lc._slot_fid[slot] = fid
+
+    def _adopt_mapping_result(self, result):
+        m, _ = result
+        self._hand_over(*m, self._pending_pt_remap)
+        self.map = m
+        self._apply_pt_remap()
+        # The job this interrupt targeted is over.
+        self._mapping_interrupt.clear()
+        # The velocity was estimated against the pre-BA map: carried across
+        # the swap it compounds the correction; re-estimate it next frame.
+        self._velocity = None
+
+    def _join_mapping(self):
+        if self._mapping_future is not None:
+            self._adopt_mapping_result(self._mapping_future.result())
+            self._mapping_future = None
+
+    def _poll_mapping(self):
+        f = self._mapping_future
+        if f is not None and f.done():
+            self._adopt_mapping_result(f.result())
+            self._mapping_future = None
+
     def _mapping_compute(self, m: MapState, ki: int) -> MapState:
-        """The LocalMapping work for new keyframe ki, snapshot -> snapshot:
-        point-slot compaction near capacity, mapping_front, two chunks of
-        local BA, the normals, then loop closing when it is on."""
+        """The LocalMapping work for new keyframe ki, snapshot -> snapshot
+        (on the mapping thread when mapping is asynchronous): a finished
+        global BA merged first, point-slot compaction near capacity (which
+        makes a running global BA's snapshot stale), mapping_front, local BA
+        in two chunks (the second skipped once InterruptBA is signalled),
+        the normals, then loop closing when it is on."""
         cfg = self.cfg
+        m = self._poll_gba(m)
         if int(m.n_pt) >= int(0.95 * m.capacity_pt):
             m, self._pending_pt_remap = compact_point_slots(m)
+            self._gba_generation += 1
+        self._mapping_interrupt.clear()
         # Neighbours and the culling's observation bar: 10 and 2 for a depth
         # sensor, 20 and 3 for a monocular map.
         nn_auto = 10 if self._depth_mode else 20
@@ -665,8 +960,11 @@ class Tracker:
                 fuse_hop=cfg.fuse_second_hop, window=cfg.local_ba_window)
         with self._stage("map.local_ba1"):
             m = self._local_ba(m, ki, iters=4)
-        with self._stage("map.local_ba2"):
-            m = self._local_ba(m, ki, iters=4)
+        if self._mapping_interrupt.is_set():
+            self.metrics.inc("map.local_ba2_skipped")
+        else:
+            with self._stage("map.local_ba2"):
+                m = self._local_ba(m, ki, iters=4)
         with self._stage("map.normals"):
             m = update_point_normals(m, self.scale_factors)
         if self.loop_closer is not None:
@@ -694,11 +992,6 @@ class Tracker:
                 r1 >= 0, rl[r1.clamp(min=0).long()], -1).to(torch.int32)
         return m
 
-    def _schedule_gba(self, m: MapState, iters: int = 10) -> MapState:
-        """Global BA for a freshly corrected loop, synchronously (mapping
-        runs in the tracker's thread)."""
-        return self._global_ba(m, iters=iters)
-
     # --------------------------------------------------------- relocalization
 
     def _match_frame_to_kf_points(self, feats: FrameFeatures, kf: int):
@@ -719,10 +1012,17 @@ class Tracker:
         lc = self.loop_closer
         if lc is None or lc.voc is None or lc.db is None:
             return None
-        v = sparse_bow_vector(lc.voc, feats.desc, feats.valid)
+        # The database as the mapping thread last published it; on a card,
+        # after the mapping stream's work that made it.
+        voc, db = lc.voc, lc.db.snapshot()
+        if self._map_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._map_stream)
+            self._hand_over(db.words, db.weight, db.has, voc.word_weight, *voc.centers,
+                            *(voc.centers_valid or ()))
+        v = sparse_bow_vector(voc, feats.desc, feats.valid)
         K = self.map.capacity_kf
-        idx, ok = lc.db.query(v, torch.zeros(K, dtype=torch.bool, device=self.device),
-                              covisibility_weights(self.map), min_score=0.0, max_candidates=3)
+        idx, ok = db.query(v, torch.zeros(K, dtype=torch.bool, device=self.device),
+                           covisibility_weights(self.map), min_score=0.0, max_candidates=3)
         got = torch.stack([idx, ok.to(idx.dtype)]).cpu().numpy()  # one read
         return [int(i) for i, o in zip(*got) if o] or None
 
@@ -997,7 +1297,12 @@ class Tracker:
         return m._replace(kf_obs_pt=_set(m.kf_obs_pt, ki, new_obs))
 
     def reset(self):
-        """Clear the map and restart at NO_IMAGES_YET (System::Reset)."""
+        """Clear the map and restart at NO_IMAGES_YET (System::Reset): the
+        mapping job joined, a running global BA superseded, the mapping
+        process's loop-closing state cleared."""
+        self._join_mapping()
+        self._gba_generation += 1
+        self._gba_future = None
         self.map = self._empty_map()
         self.state = TrackingState.NO_IMAGES_YET
         self.trajectory = []
@@ -1005,6 +1310,8 @@ class Tracker:
         if self.loop_closer is not None:  # the vocabulary is kept
             self.loop_closer = self._new_loop_closer(self.loop_closer.voc)
         self._reset_tracking()
+        if self._remote_mapper is not None:
+            self._remote_mapper.reset()
 
     # ------------------------------------------------------------- public API
 
@@ -1090,14 +1397,35 @@ class Tracker:
             return self._after_ok_track(self._track_frame(feats, frame_id), frame_id)
         return self._lost_track(feats, frame_id)
 
+    def _drain(self):
+        """Adopt the mapping job in flight, then merge a running global BA
+        once it has finished."""
+        self._join_mapping()
+        if self._gba_future is not None:
+            self._gba_future.result()
+            self.map = self._poll_gba(self.map)
+
     def shutdown(self):
-        """Mapping runs synchronously: nothing is in flight."""
+        """Finish the background work, close the mapping process and stop
+        the threads (System::Shutdown waits for LocalMapping, LoopClosing
+        and global BA); exporting stays valid, and mapping runs
+        synchronously from here on."""
+        self._drain()
+        if self._remote_mapper is not None:
+            self._remote_mapper.close()
+            self._remote_mapper = None
+        for pool in (self._mapping_pool, self._gba_pool):
+            if pool is not None:
+                pool.shutdown(wait=True)
+        self._mapping_pool = self._gba_pool = None
 
     def export_trajectory(self):
-        """The camera trajectory: each frame's stored relative pose composed
-        with its reference keyframe's optimized pose, a culled keyframe
-        resolved through its spanning-tree parents. Returns a list of
-        (frame_id, R_cw (3, 3), t_cw (3,), lost) as numpy."""
+        """The camera trajectory, the background work drained first: each
+        frame's stored relative pose composed with its reference keyframe's
+        optimized pose, a culled keyframe resolved through its spanning-tree
+        parents. Returns a list of (frame_id, R_cw (3, 3), t_cw (3,), lost)
+        as numpy."""
+        self._drain()
         kf_R = self.map.kf_R.cpu().numpy()
         kf_t = self.map.kf_t.cpu().numpy()
         kf_valid = self.map.kf_valid.cpu().numpy()

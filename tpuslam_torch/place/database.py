@@ -10,9 +10,15 @@ covisibility-group accumulation and the 0.75 x best retention.
 
 from __future__ import annotations
 
+import copy
+import threading
 from typing import NamedTuple
 
 import torch
+
+# Held while a database swaps in its tables or a reader copies them out
+# (one lock for all databases: the swaps are a few assignments).
+_SWAP = threading.Lock()
 
 
 def l1_score(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -87,7 +93,12 @@ def l1_score_sparse(a: SparseBow, b_dense: torch.Tensor) -> torch.Tensor:
 
 class SparseKeyFrameDatabase:
     """Word-list BoW store aligned with the map's keyframe slots; the exact
-    equivalent of KeyFrameDatabase at O(K L) memory."""
+    equivalent of KeyFrameDatabase at O(K L) memory.
+
+    A background mapping thread adds rows while the tracking thread queries
+    for relocalization, so the tables are never written in place: add and
+    erase swap in new tensors together, and `snapshot` gives a reader the
+    tables of one moment."""
 
     def __init__(self, n_words: int, max_keyframes: int, words_per_kf: int, device="cuda"):
         self.n_words = n_words
@@ -97,12 +108,23 @@ class SparseKeyFrameDatabase:
 
     def add(self, kf_idx: int, bow: SparseBow):
         assert bow.words.shape[0] == self.words.shape[1], "SparseBow capacity mismatch"
-        self.words[kf_idx] = bow.words
-        self.weight[kf_idx] = bow.weight
-        self.has[kf_idx].fill_(True)  # no host->device copy: no sync
+        words, weight, has = self.words.clone(), self.weight.clone(), self.has.clone()
+        words[kf_idx] = bow.words
+        weight[kf_idx] = bow.weight
+        has[kf_idx].fill_(True)  # no host->device copy: no sync
+        with _SWAP:
+            self.words, self.weight, self.has = words, weight, has
 
     def erase(self, kf_idx: int):
-        self.has[kf_idx].fill_(False)
+        has = self.has.clone()
+        has[kf_idx].fill_(False)
+        with _SWAP:
+            self.has = has
+
+    def snapshot(self) -> "SparseKeyFrameDatabase":
+        """A copy sharing this moment's tables (none is written again)."""
+        with _SWAP:
+            return copy.copy(self)
 
     def query(self, bow: SparseBow, exclude, covis_weights, min_score, max_candidates: int = 8):
         """KeyFrameDatabase.query's candidates, from one dense scatter of the

@@ -5,8 +5,10 @@ over a real MapState (build_depth_session), rendered monocular, stereo and
 RGB-D frames (render_frames, render_stereo_frames, render_rgbd_frames), a
 TUM RGB-D folder of them written without PIL (png_bytes, write_tum_rgbd), a
 System session over them (mono_session, depth_session) and its ATE after a
-Sim3 or a rigid alignment (trajectory_ate), and a drifted loop map for loop
-closing (build_loop_map).
+Sim3 or a rigid alignment (trajectory_ate), a drifted loop map for loop
+closing (build_loop_map), and a small consistent bundle-adjustment problem
+with a map built from it (synthetic_ba_problem, map_from_ba_problem: the
+port's copies of tpuslam/testing.py's).
 
 A coherent step: the keypoints of a frame rendered at pose A, back-projected
 through A's depth image, are both the last frame's points and the first
@@ -39,6 +41,7 @@ from tpuslam_torch.mapstate.core import (
 )
 from tpuslam_torch.ops.image import gaussian_blur
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb, extract_orb_batched
+from tpuslam_torch.optim.ba import BAProblem
 from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, fused_track_frame_image
 from tpuslam_torch.pipeline.tracker import pad_feats
 
@@ -476,9 +479,13 @@ def write_tum_rgbd(root: str, frames, t0: float = 1305031102.175304) -> str:
 def _timed_session(system, track, frames, on_frame) -> list:
     import time
 
-    def sync():
-        if system.tracker.device.type == "cuda":
-            torch.cuda.synchronize(system.tracker.device)
+    def sync():  # with background mapping, the calling thread's stream only
+        tr = system.tracker
+        if tr.device.type == "cuda":
+            if tr._map_stream is None:
+                torch.cuda.synchronize(tr.device)
+            else:
+                torch.cuda.current_stream(tr.device).synchronize()
 
     res = []
     for i, args in enumerate(frames):
@@ -495,8 +502,9 @@ def _timed_session(system, track, frames, on_frame) -> list:
 def mono_session(system, frames, on_frame=None) -> list:
     """Feed `system.track_monocular` the images `frames`, timestamps i / 30
     s. Returns one (T_cw or None, ms) per frame: the call's wall time, the
-    card synchronized before and after it. on_frame(i, out) runs after each
-    frame."""
+    card synchronized before and after it (with background mapping, the
+    caller's stream only: the mapping job's is not waited for).
+    on_frame(i, out) runs after each frame."""
     return _timed_session(system, system.track_monocular, [(f,) for f in frames], on_frame)
 
 
@@ -655,3 +663,73 @@ def build_loop_map(rng, n_kf: int = 16, drift: float = 0.012, revisit: bool = Tr
                               depth=torch.zeros(N, device=device))
         m, _ = insert_keyframe(m, feats, t(R_d), t(t_d), k, t(obs))
     return m, gt, drifted
+
+
+def synthetic_ba_problem(rng, K: int = 6, P: int = 128, n_obs_per_kf: int = 64, device="cpu"):
+    """A small consistent BA problem (tpuslam/testing.py's, the same draws
+    from `rng`): K cameras in an arc, each observing n_obs_per_kf of P
+    points with 0.3 px noise (mono edges), the points perturbed by 0.05,
+    keyframe 0 fixed. Returns (cam, BAProblem on `device`)."""
+    cam = PinholeCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
+    X = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(5, 12, P)], -1).astype(np.float32)
+    kf, pt, uvr, Rs, ts = [], [], [], [], []
+    for k in range(K):
+        R = so3_exp(torch.tensor([0.0, -0.03 * k, 0.0])).numpy()
+        t = np.array([-0.25 * k, 0, 0], np.float32)
+        Rs.append(R)
+        ts.append(t)
+        uv = project(cam, se3_apply(torch.from_numpy(R), torch.from_numpy(t), torch.from_numpy(X))).numpy()
+        for j in rng.choice(P, n_obs_per_kf, replace=False):
+            kf.append(k)
+            pt.append(j)
+            uvr.append([uv[j, 0] + rng.normal() * 0.3, uv[j, 1] + rng.normal() * 0.3, -1.0])
+    E = len(kf)
+    fixed_kf = np.zeros(K, bool)
+    fixed_kf[0] = True
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return cam, BAProblem(
+        R=tt(np.stack(Rs)), t=tt(np.stack(ts)),
+        X=tt(X + rng.normal(size=X.shape).astype(np.float32) * 0.05),
+        kf=tt(np.array(kf, np.int32)), pt=tt(np.array(pt, np.int32)), uvr=tt(np.array(uvr, np.float32)),
+        inv_sigma2=torch.ones(E, device=device), valid=torch.ones(E, dtype=torch.bool, device=device),
+        fixed_kf=tt(fixed_kf), fixed_pt=torch.zeros(P, dtype=torch.bool, device=device))
+
+
+def map_from_ba_problem(cam, prob: BAProblem, max_kf: int, n_kp: int, max_pt: int) -> MapState:
+    """A MapState holding a BA problem's keyframes, points and observations
+    (each keyframe's edges in order as its keypoints; tpuslam/testing.py's),
+    on the problem's device, so that the Tracker's own BA entry points can
+    run on it."""
+    dev = prob.X.device
+    K, P = prob.R.shape[0], prob.X.shape[0]
+    kf, pt, uvr = prob.kf.cpu().numpy(), prob.pt.cpu().numpy(), prob.uvr.cpu().numpy()
+    obs = np.full((max_kf, n_kp), -1, np.int32)
+    xy = np.zeros((max_kf, n_kp, 2), np.float32)
+    ur = np.full((max_kf, n_kp), -1.0, np.float32)
+    kp_valid = np.zeros((max_kf, n_kp), bool)
+    slot = np.zeros(max_kf, np.int64)
+    for e in range(len(kf)):
+        k, s = int(kf[e]), int(slot[kf[e]])
+        if s >= n_kp:
+            continue
+        obs[k, s] = pt[e]
+        xy[k, s] = uvr[e, :2]
+        ur[k, s] = uvr[e, 2]
+        kp_valid[k, s] = True
+        slot[k] += 1
+    m = make_empty_map(max_kf, n_kp, max_pt, dev)
+
+    def put(a: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+        a = a.clone()
+        a[:n] = v
+        return a
+
+    tt = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return m._replace(
+        kf_R=put(m.kf_R, prob.R, K), kf_t=put(m.kf_t, prob.t, K),
+        kf_valid=put(m.kf_valid, True, K),
+        kf_frame_id=put(m.kf_frame_id, torch.arange(K, dtype=torch.int32, device=dev), K),
+        kf_kp_xy=tt(xy), kf_kp_uright=tt(ur), kf_kp_valid=tt(kp_valid), kf_obs_pt=tt(obs),
+        pt_xyz=put(m.pt_xyz, prob.X, P), pt_valid=put(m.pt_valid, True, P),
+        pt_max_dist=put(m.pt_max_dist, 100.0, P),
+        n_kf=torch.tensor(K, dtype=torch.int32, device=dev), n_pt=torch.tensor(P, dtype=torch.int32, device=dev))
