@@ -23,6 +23,21 @@ Phases, any failure exits non-zero:
      frame accepted within 1 cm / 0.2 deg of ground truth, both branches
      taken, both kernels launched on every frame, and one mid-session state
      through the port on the CPU agreeing with the card;
+  graphs: the map slice's 161-frame path again, each frame's step run
+     both ways in turns on the same state: eagerly (fused_track_frame_image)
+     and through StepGraphs (pipeline/graphs.py: each segment of the step a
+     captured CUDA graph, replayed); every output torch.equal on every
+     frame, the frames counted by branch (reference keyframe without a
+     velocity, motion model, the th=14 retry, the reference keyframe after
+     a failed motion model), ms per frame both ways, and on the late
+     snapshots per branch: CUDA-event ms in turns, device->host reads (no
+     more than eager) and host API calls per frame (kernel launches, graph
+     launches and copies, under 100 graphed); each capture's ms and
+     instantiation ms, graph nodes and kernel nodes per segment, the
+     graph pool's and the static buffers' bytes, and the device ms of the
+     copy-in of a replaced map. Every session phase below runs through the
+     tracker's graphs (the card's path) and prints its graph_replays and
+     graph_captures; each fails unless every steady-state frame replayed;
   5. times: CUDA-event medians of 20 runs after warm-up, in turns, for the
      kernels against their plain versions (and gather_patches against one
      aten::index call) at B=4 and B=1, per call and as the device's time
@@ -167,7 +182,7 @@ import torch
 import tpuslam_torch._build as build
 from tpuslam_torch.convert import array_to_tensor, map_to_numpy, map_to_torch
 from tpuslam_torch.geometry.camera import PinholeCamera, project
-from tpuslam_torch.geometry.se3 import se3_apply
+from tpuslam_torch.geometry.se3 import se3_apply, se3_exp
 from tpuslam_torch.mapstate.core import FrameFeatures, covisibility_weights, update_point_normals
 from tpuslam_torch.matching.search import search_by_projection_points
 from tpuslam_torch.ops.fast import fast_nms, fast_nms_plain, fast_nms_pyramid, fast_response
@@ -193,6 +208,7 @@ from tpuslam_torch.ops.stereo import (
 from tpuslam_torch.pipeline import loop_closing, steps
 from tpuslam_torch.pipeline.loop_closing import LoopCloser
 from tpuslam_torch.pipeline.multi import MultiTracker
+from tpuslam_torch.pipeline.graphs import StepGraphs
 from tpuslam_torch.pipeline.steps import fused_track_frame_image, local_keyframe_mask
 from tpuslam_torch.pipeline.system import SensorType, System
 from tpuslam_torch.pipeline.track_step import track_step_batched
@@ -528,8 +544,9 @@ def phase_slice(inp: dict):
     return args, launches
 
 
-def _fused(st, img, inv_sigma2, has_vel=None):
-    """fused_track_frame_image on a session state, as the tracker calls it."""
+def _fused(st, img, inv_sigma2, has_vel=None, **kwargs):
+    """fused_track_frame_image on a session state, as the tracker calls it
+    (`kwargs`: its `run`)."""
     has_vel = st.has_vel if has_vel is None else has_vel
     vel_R, vel_t = (st.vel_R, st.vel_t) if has_vel else (
         torch.eye(3, device=img.device), torch.zeros(3, device=img.device))
@@ -537,7 +554,7 @@ def _fused(st, img, inv_sigma2, has_vel=None):
         CAM, CFG, st.m, img, st.last_feats, st.last_obs, st.last_R, st.last_t,
         vel_R, vel_t, has_vel, st.ref_kf, inv_sigma2.to(img.device),
         MAP_STEP["accept_thr"], min_inliers_motion=MAP_STEP["min_inliers_motion"],
-        max_local_pts=MAP_STEP["max_local_pts"], cand_cap=MAP_STEP["cand_cap"],
+        max_local_pts=MAP_STEP["max_local_pts"], cand_cap=MAP_STEP["cand_cap"], **kwargs,
     )
 
 
@@ -780,6 +797,171 @@ def frame_kinds(rec: list, counters0=None) -> list:
     return kinds
 
 
+# The branch of a frame from the segments its step ran.
+GRAPH_BRANCHES = {
+    ("front", "ref", "local"): "reference keyframe (no velocity)",
+    ("front", "mm", "local"): "motion model",
+    ("front", "mm", "mm", "local"): "motion model after the th=14 retry",
+    ("front", "mm", "mm", "ref", "local"): "reference keyframe after a failed motion model",
+}
+# Velocities turned by these yaws (deg) on the last snapshot force the
+# motion model's other branches, the th=14 retry and past it the reference
+# keyframe; which angle takes which depends on the state (on a CPU session
+# of this path and camera 4 deg retried and 6 failed both; on the card's
+# frame-158 state 4 and 6 both failed).
+GRAPH_YAWS = (2.0, 3.0, 4.0, 6.0)
+GRAPH_REPS = 7  # map times has already timed the eager step on these states 20 times
+# Host API calls of a frame: kernel and graph launches, copies and syncs.
+API_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+             "cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync", "cudaStreamSynchronize")
+
+
+def api_calls(fn) -> dict:
+    """{host API call: count} of one call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.key in API_CALLS}
+
+
+def phase_graphs(scene: StepWallScene, smi: str, device: str = "cuda") -> dict:
+    """The map slice's path with each frame's step both ways (see the
+    module docstring). Returns the kernels' launches of both ways."""
+    poses = orbit_trajectory(MAP_FRAMES, **MAP_POSES)
+    graphs = StepGraphs(device)
+    ran, rows = [], []
+
+    def run(name, fn, static, **inputs):
+        ran.append(name)
+        return graphs.run(name, fn, static, **inputs)
+
+    def step(*args, **kwargs):
+        ways = {"eager": {}, "graphed": dict(run=run)}
+        order = ("eager", "graphed") if len(rows) % 2 == 0 else ("graphed", "eager")
+        outs, ms = {}, {}
+        captures = graphs.captures
+        for way in order:
+            ran.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[way] = fused_track_frame_image(*args, **kwargs, **ways[way])
+            outs[way][-1].cpu()  # the packed fetch, as the tracker makes it
+            ms[way] = (time.perf_counter() - t0) * 1e3
+            if way == "graphed":
+                branch = GRAPH_BRANCHES[tuple(ran)]
+        flat = {w: list(o[0]) + list(o[1:]) for w, o in outs.items()}
+        rows.append(dict(branch=branch, ms=ms, captured=graphs.captures > captures,
+                         equal=all(torch.equal(a, b) for a, b in zip(flat["eager"], flat["graphed"]))))
+        return outs["graphed"]
+
+    fast_nms.launches = 0
+    gather_patches.launches = 0
+    t0 = time.perf_counter()
+    s = build_depth_session(scene, CAM, CFG, poses, MAP["K"], MAP["N_cap"], MAP["P"], MAP_KF_EVERY,
+                            device=device, snapshot_at=MAP_SNAP[2:], step=step, **MAP_STEP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    p = np.stack([f["packed"] for f in s.frames])
+    log(f"graphs on {smi}: the map slice's {len(rows)} frames, each step eager and graphed in turns, in "
+        f"{wall:.1f} s; launches of both ways {launches}; accepted {int((p[:, 0] > 0.5).sum())}/{len(p)}")
+    bad = [f"frame {f['frame']}: the graphed step differs from the eager one"
+           for f, r in zip(s.frames, rows) if not r["equal"]]
+    log(f"  torch.equal on every output (features, R, t, obs, velocity, pt_visible, pt_found, packed): "
+        f"{sum(r['equal'] for r in rows)}/{len(rows)} frames")
+    for branch in GRAPH_BRANCHES.values():
+        sel = [r for r in rows if r["branch"] == branch and not r["captured"]]
+        n = sum(r["branch"] == branch for r in rows)
+        log(f"  {branch}: {n} frames; eager {_ms([r['ms']['eager'] for r in sel])}, graphed "
+            f"{_ms([r['ms']['graphed'] for r in sel])} per frame (host clock, card synchronized, the "
+            f"packed fetch included; frames that captured left out)")
+    taken = {r["branch"] for r in rows}
+    if not {"motion model", "reference keyframe (no velocity)"} <= taken:
+        bad.append(f"the path took only {taken}")
+
+    # The late snapshots: the reference branch (frame 157), the motion model (158).
+    res = {}
+    for snap, name in zip(MAP_SNAP[2:], ("reference keyframe", "motion model")):
+        st, img = s.snapshots[snap]
+        eager = lambda st=st, img=img: _fused(st, img, s.inv_sigma2)  # noqa: E731
+        graphed = lambda st=st, img=img: _fused(st, img, s.inv_sigma2, run=run)  # noqa: E731
+        e_ms, g_ms = cuda_ms_turns([eager, graphed], reps=GRAPH_REPS, warmup=1)
+        reads = {w: count_syncs(lambda f=f: f()[-1].cpu())[1][:-1] for w, f in (("eager", eager), ("graphed", graphed))}
+        calls = {w: api_calls(f) for w, f in (("eager", eager), ("graphed", graphed))}
+        res[name] = dict(eager_ms=e_ms, graphed_ms=g_ms, reads=reads, calls=calls)
+        log(f"  the frame-{snap} state, {name} branch: eager {e_ms:.3f} ms, graphed {g_ms:.3f} ms per frame "
+            f"(CUDA-event medians of {GRAPH_REPS}, in turns), {e_ms / g_ms:.2f}x; device->host reads in the step "
+            f"eager {len(reads['eager'])}, graphed {len(reads['graphed'])} (at {reads['graphed']}); host API "
+            f"calls per frame eager {sum(calls['eager'].values())} {calls['eager']}, graphed "
+            f"{sum(calls['graphed'].values())} {calls['graphed']}")
+        if len(reads["graphed"]) > len(reads["eager"]):
+            bad.append(f"{name}: {len(reads['graphed'])} reads graphed against {len(reads['eager'])} eager")
+        if sum(calls["graphed"].values()) >= 100:
+            bad.append(f"{name}: {sum(calls['graphed'].values())} host API calls graphed")
+
+    # The retry and the fallback, forced by a turned velocity on the last
+    # snapshot's state: each graphed against eager.
+    st, img = s.snapshots[MAP_SNAP[-1]]
+    for deg in GRAPH_YAWS:
+        w = torch.zeros(6, device=img.device)
+        w[1] = float(np.deg2rad(deg))
+        turned = st._replace(vel_R=se3_exp(w)[0] @ st.vel_R)
+        ran.clear()
+        g = _fused(turned, img, s.inv_sigma2, run=run)
+        branch = GRAPH_BRANCHES[tuple(ran)]
+        e = _fused(turned, img, s.inv_sigma2)
+        equal = all(torch.equal(a, b) for a, b in zip(list(e[0]) + list(e[1:]), list(g[0]) + list(g[1:])))
+        p = g[-1].cpu().numpy()
+        log(f"  the frame-{MAP_SNAP[-1]} state, its velocity turned by {deg} deg: {branch}, accepted "
+            f"{p[steps.FUSED_ACCEPT]:.0f}, {p[steps.FUSED_N_TRACKED]:.0f} tracked; graphed "
+            f"{'equal to' if equal else 'DIFFERENT from'} eager")
+        if not equal:
+            bad.append(f"the turned velocity ({deg} deg): the graphed step differs from the eager one")
+
+    for c in graphs.captured:
+        log(f"  captured {c['segment']} {c['static']}: warm-up {c['warmup_ms']:.1f} ms, capture "
+            f"{c['capture_ms']:.1f} ms, instantiation {c['instantiate_ms']:.1f} ms; {c['nodes']} nodes, "
+            f"{c['kernel_nodes']} kernel nodes; kernel launches in it {c['launches']}")
+    # The copy-in of a replaced map: every map field a segment reads, into
+    # buffers of its shape, one _foreach_copy_ per dtype.
+    st = s.snapshots[MAP_SNAP[-1]][0]
+    fields = sorted(set(steps.MM_MAP_FIELDS + steps.REF_MAP_FIELDS + steps.LOCAL_MAP_FIELDS))
+    groups = {}
+    for f in fields:
+        x = getattr(st.m, f)
+        dst, src = groups.setdefault(x.dtype, ([], []))
+        dst.append(torch.empty_like(x))
+        src.append(x)
+    nbytes = sum(x.numel() * x.element_size() for _, src in groups.values() for x in src)
+    copy_ms, = cuda_ms_turns([lambda: [torch._foreach_copy_(d, c) for d, c in groups.values()]], ahead=True)
+    copy_calls = api_calls(lambda: [torch._foreach_copy_(d, c) for d, c in groups.values()])
+    log(f"  copy-in of a replaced map ({len(fields)} fields, {nbytes / 2**20:.1f} MiB, {len(groups)} "
+        f"dtypes): {copy_ms:.4f} ms of device time ({nbytes / copy_ms / 1e6:.1f} GB/s), host API calls "
+        f"{copy_calls}; graph pool {graphs.pool_bytes() / 2**20:.1f} MiB, static buffers "
+        f"{graphs.buffer_bytes() / 2**20:.1f} MiB; kernel launches by replay {graphs.replayed_launches}")
+    if bad:
+        raise AssertionError(f"graphs: {bad}")
+    return launches
+
+
+def graph_report(name: str, tr) -> list:
+    """Print a session's graph counts (steady-state frames replayed from
+    the tracker's graphs, captures, their ms, the pool's bytes); the
+    failure: a steady-state frame that did not replay."""
+    g, st = tr.graphs, tr.stats
+    cap_ms = [c["capture_ms"] + c["instantiate_ms"] for c in g.captured]
+    log(f"  {name} graphs: graph_replays {st['graph_replays']} of {st['dispatches']} steady-state "
+        f"frames, graph_captures {st['graph_captures']} ({', '.join(c['segment'] for c in g.captured)}), "
+        f"capture and instantiation {_ms(cap_ms)} each, {g.replays} segment replays, kernel launches "
+        f"by replay {g.replayed_launches}; graph pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB, static buffers {g.buffer_bytes() / 2**20:.1f} MiB")
+    if st["graph_replays"] != st["dispatches"]:
+        return [f"{name}: {st['graph_replays']} graph replays for {st['dispatches']} steady-state frames"]
+    return []
+
+
 def watch_loop_stage(tr) -> list:
     """Wrap the tracker's loop-closing hand-off so each keyframe's
     device->host reads in it (count_syncs) append to the returned list."""
@@ -907,6 +1089,7 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     if any(x["launches"][k] < 1 for x in kinds for k in launches):
         bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
     bad += loop_stage_report("mono", tr, loop_reads, smi)
+    bad += graph_report("mono", tr)
     if bad:
         raise AssertionError(f"mono SLAM: {bad}")
     del tr._close_loops  # the instance's own method again
@@ -1206,6 +1389,7 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
         bad.append(f"{name}: ended in {tr.state.name}")
     if any(x["launches"][k] < 1 for x in kinds for k in launches):
         bad.append(f"{name}: a frame without both kernels: {[x['launches'] for x in kinds]}")
+    bad += graph_report(name, tr)
     if bad:
         raise AssertionError(f"{name} SLAM: {bad}")
 
@@ -1274,8 +1458,10 @@ def phase_localization(name: str, system: System, frames: list, poses, smi: str)
         f"tracked, VO mode engaged on {vo} of them; map changed: {changed or 'no'}; centre error "
         f"against the truth (the session's rigid alignment) median {statistics.median(errs) if errs else float('nan'):.4f} m, "
         f"max {max(errs) if errs else float('nan'):.4f} m; {_ms(ms)} per frame; launches {launches}")
-    if changed or tracked < LOC_TRACKED * LOC_FRAMES:
-        raise AssertionError(f"{name} localization mode: map changed {changed}, tracked {tracked}/{LOC_FRAMES}")
+    bad = graph_report(f"{name} localization", tr)
+    if changed or tracked < LOC_TRACKED * LOC_FRAMES or bad:
+        raise AssertionError(f"{name} localization mode: map changed {changed}, tracked "
+                             f"{tracked}/{LOC_FRAMES}; {bad}")
     return launches
 
 
@@ -1307,7 +1493,7 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
     bad = []
     for b, tr in enumerate(mt.trackers):
         fails, summary = depth_gates(f"stream {b}", tr.export_trajectory(), paths[b], MULTI_FRAMES)
-        bad += fails
+        bad += fails + graph_report(f"stream {b}", tr)
         log(f"  stream {b}: {summary}; {tr._n_kf_host} keyframes")
     log(f"MultiTracker.track_stereo on {smi}: B={MULTI_B} streams at {KITTI_CAM.width}x{KITTI_CAM.height}, "
         f"{KITTI_ORB.n_features} features, {MULTI_FRAMES} frames: {_ms(ms)} per batched frame; (fast_nms, "
@@ -1371,7 +1557,7 @@ def phase_rgbd(smi: str) -> dict:
         key = id(f[1])
         if key not in depth_dev:  # the uint16 image crosses to the card once, outside the timing
             depth_dev[key] = system._input(f[1])
-        return tr._frame_features_rgbd(f[0], depth_dev[key])
+        return steps.rgbd_frame_features(f[0], depth_dev[key], cam, cfg, tr.cfg.depth_map_factor)
 
     f = front(frames[0])
     has = f.depth > 0
@@ -1685,6 +1871,7 @@ def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: 
         bad.append("localization changed the loaded map")
     if min(loc_launches.values()) < len(outs):
         bad.append(f"kernel launches {loc_launches} over {len(outs)} localized frames")
+    bad += graph_report("localized against the loaded map", tr)
 
     # One more localized frame under torch_trace.
     with torch_trace(f"{work}/trace") as prof:
@@ -1777,7 +1964,7 @@ def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: 
         viewer.close()
     fails, summary = depth_gates("facade driver", res.system.tracker.export_trajectory(), tum_poses,
                                  FACADE_TUM_FRAMES)
-    bad += fails
+    bad += fails + graph_report("the rgbd_tum driver", res.system.tracker)
     log(f"  TUM RGB-D folder of {FACADE_TUM_FRAMES} frames (8-bit RGB and 16-bit depth PNGs, no PIL) written "
         f"in {write_s:.1f} s; rgbd_tum.run on it: decode {_ms(res.decode_ms)} per frame (host), track "
         f"{_ms(res.track_ms)} per frame; {summary}; the first frame decoded "
@@ -1821,10 +2008,12 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
     record = session_recorder(tr, rec)
     fast_nms.launches = 0
     gather_patches.launches = 0
+    busy = [False]  # whether a mapping job was in flight when each frame began
     with sync_sites() as sites:
         def on_frame(i, out):
             record(i, out)
             marks.append(len(sites))
+            busy.append(tr._mapping_future is not None and not tr._mapping_future.done())
 
         t0 = time.perf_counter()
         res = mono_session(system, frames, on_frame=on_frame)
@@ -1860,6 +2049,9 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
         f"{ {k: len(v) for k, v in by_kind.items()} }")
     for k, v in by_kind.items():
         log(f"  {k} frame: async {_ms(v)}; synchronous {_ms(sync['ms_by_kind'][k])}")
+    mm_ms = [m for (m, x, b) in zip((m for _, m in res), kinds, busy) if x["kind"] == "motion model" and b]
+    log(f"  tracking frames (motion model) begun while a mapping job ran: {_ms(mm_ms)}; the "
+        f"synchronous session's motion-model frame {_ms(sync['ms_by_kind']['motion model'])}")
     log(f"  the mapping job on its thread: {_ms(jobs)}; of which mapping_front "
         f"{_ms([v * 1e3 for v in st.get('map.front', [])])}, local BA chunk 1 "
         f"{_ms([v * 1e3 for v in st.get('map.local_ba1', [])])}, chunk 2 "
@@ -1890,6 +2082,7 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
         bad.append(f"{tr.loop_closer.n_loops_closed} loops closed on a path that revisits nothing")
     if len(st.get("map.loop", [])) != len(jobs):
         bad.append(f"{len(st.get('map.loop', []))} loop stages in {len(jobs)} jobs")
+    bad += graph_report("async mono", tr)
     system.shutdown()
     if bad:
         raise AssertionError(f"async mono SLAM: {bad}")
@@ -2020,6 +2213,7 @@ def phase_mapping_process(scene: StepWallScene, smi: str) -> dict:
         bad.append(f"the worker: {rm.info}")
     if not closed:
         bad.append("shutdown left the worker process running")
+    bad += graph_report("mapping process", tr)
     if bad:
         raise AssertionError(f"mapping process: {bad}")
     return launches
@@ -2235,6 +2429,7 @@ def main() -> int:
     log(f"times on {smi}:")
     log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
     timed("map times", map_times, session, late, smi)
+    graph_launches = timed("graphs", phase_graphs, scene, smi)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # the mono map, the facade's files
     mono_launches, mono = timed("mono SLAM", phase_mono, scene, smi, work.name)
     stereo_scene = StepWallScene(np.random.default_rng(5), **STEREO_SCENE)
@@ -2265,7 +2460,7 @@ def main() -> int:
     main_b = kt[B]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (launches[name] + map_launches[name] + mono_launches[name]
+         "launches": (launches[name] + map_launches[name] + graph_launches[name] + mono_launches[name]
                       + stereo["launches"][name] + stereo["loc_launches"][name]
                       + rgbd["launches"][name] + multi_launches[name] + facade_launches[name]
                       + parallel_launches[name]),

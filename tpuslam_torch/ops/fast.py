@@ -138,7 +138,9 @@ def fast_nms_pyramid(levels, min_th: float) -> list:
     """NMS'd FAST score maps of a list of (B_l, H_l, W_l) float32 levels (at
     most 8). CUDA tensors go through one launch of the kernel
     (csrc/fast_nms.cu) for all of them; CPU tensors through the plain
-    version. `fast_nms.launches` counts kernel launches."""
+    version. `fast_nms.launches` counts kernel launches; a replay of a
+    captured graph does not move it, so pipeline/graphs.py adds the
+    graph's captured launches on each replay."""
     if min_th < 0:
         raise ValueError(f"fast_nms: min_th = {min_th} < 0")  # the kernel's one-sign arc search needs >= 0
     levels = list(levels)

@@ -74,7 +74,9 @@ def gather_patches(atlas: torch.Tensor, corner: torch.Tensor) -> torch.Tensor:
     A CUDA tensor goes through the kernel (csrc/gather_patches.cu), which
     asserts on the device that each window is inside; a CPU tensor through
     the plain version, after a check that raises. `gather_patches.launches`
-    counts kernel launches."""
+    counts kernel launches; a replay of a captured graph does not move it,
+    so pipeline/graphs.py adds the graph's captured launches on each
+    replay."""
     _check_args(atlas, corner)
     if atlas.device.type == "cuda":
         return _gather_patches_cuda(atlas, corner)

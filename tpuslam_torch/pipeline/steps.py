@@ -3,10 +3,13 @@ Port of tpuslam/pipeline/steps.py.
 
 Each function returns what its JAX counterpart returns, in the same order.
 The JAX package compiles the fused step into one program whose data-
-dependent branches are lax.cond; PyTorch runs eagerly, so those branches
-are host branches here. `has_vel` is a host bool, as the tracker holds it;
-the th=14 retry and the motion-model verdict each cost one device->host
-read (`_fused_track_core`). Everything else stays on the device.
+dependent branches are lax.cond. Here the step is three pure segments
+(`mm_segment`, `ref_segment`, `local_segment`, each a function of tensors
+with no host read, which a card captures as a CUDA graph:
+pipeline/graphs.py), and those branches are host branches between them
+(`compose_track_frame`). `has_vel` is a host bool, as the tracker holds
+it; the motion model's verdict is one device->host read, and the th=14
+retry's one more. Everything else stays on the device.
 
 Scatters follow the JAX package's rules (pipeline/_index.py): the last of
 repeated writes wins, out-of-bounds writes are dropped, and the fixed-size
@@ -48,7 +51,7 @@ from tpuslam_torch.matching.search import (
     rotation_consistency_mask,
     search_by_projection_points,
 )
-from tpuslam_torch.ops.orb import _stable_topk
+from tpuslam_torch.ops.orb import _stable_topk, extract_orb
 from tpuslam_torch.optim.ba import BAProblem, dense_schur_bundle_adjustment
 from tpuslam_torch.optim.pose import PoseObs, pose_optimization
 from tpuslam_torch.pipeline._index import (
@@ -77,6 +80,14 @@ def _in_image(cam: PinholeCamera, uv: torch.Tensor) -> torch.Tensor:
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[max(idx, 0)]: the JAX package's clamped gather of -1 entries."""
     return x[idx.clamp(min=0).long()]
+
+
+def _row(x: torch.Tensor, kf) -> torch.Tensor:
+    """x[kf] for a host int, or for a 1-element index tensor (index_select:
+    indexing with a 0-d device tensor would read it on the host)."""
+    if isinstance(kf, torch.Tensor):
+        return x.index_select(0, kf.reshape(1).long())[0]
+    return x[kf]
 
 
 def track_motion_model(cam: PinholeCamera, m: MapState, last_feats: FrameFeatures,
@@ -148,12 +159,13 @@ def track_reference_keyframe(cam: PinholeCamera, m: MapState, kf, cur: FrameFeat
     """TrackReferenceKeyFrame: descriptor-match the current frame against
     the reference keyframe's map points (dense masked matching, ratio 0.7,
     rotation consistency), then pose-optimize from the last frame's pose.
-    Returns (R, t, obs_pt (N,), n_matches, n_map_inliers)."""
-    obs_k = m.kf_obs_pt[kf]
-    has_k = (obs_k >= 0) & m.kf_kp_valid[kf] & _take(m.pt_valid, obs_k)
+    `kf` is a host int or a 1-element index tensor. Returns (R, t, obs_pt
+    (N,), n_matches, n_map_inliers)."""
+    obs_k = _row(m.kf_obs_pt, kf)
+    has_k = (obs_k >= 0) & _row(m.kf_kp_valid, kf) & _take(m.pt_valid, obs_k)
     pair = cur.valid[:, None] & has_k[None, :]
-    idx, dist, ok = match_nn_ratio(cur.desc, m.kf_kp_desc[kf], pair, max_dist=TH_LOW, nn_ratio=0.7)
-    ok = rotation_consistency_mask(cur.angle, m.kf_kp_angle[kf][idx], ok)
+    idx, dist, ok = match_nn_ratio(cur.desc, _row(m.kf_kp_desc, kf), pair, max_dist=TH_LOW, nn_ratio=0.7)
+    ok = rotation_consistency_mask(cur.angle, _row(m.kf_kp_angle, kf)[idx], ok)
     ok = resolve_duplicates(idx, dist, ok, m.kf_kp_desc.shape[1])
     n_matches = ok.sum()
     obs_pt = torch.where(ok, obs_k[idx], -1)
@@ -170,14 +182,15 @@ def optimize_frame_pose(cam, m, cur, obs_pt, R0, t0, inv_sigma2_table):
 
 def tracked_map_points(m: MapState, kf, min_obs):
     """KeyFrame::TrackedMapPoints: the number of the keyframe's observed
-    map points with >= min_obs observations in all."""
+    map points with >= min_obs observations in all (`kf` a host int or a
+    1-element index tensor)."""
     P = m.capacity_pt
     has = (m.kf_obs_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
     flat = torch.where(has, m.kf_obs_pt, P).reshape(-1).long()
     cnt = torch.zeros(P + 1, dtype=torch.float32, device=flat.device).index_add(
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))[:P]
-    obs_k = m.kf_obs_pt[kf]
-    ok = ((obs_k >= 0) & m.kf_kp_valid[kf] & _take(m.pt_valid, obs_k)
+    obs_k = _row(m.kf_obs_pt, kf)
+    ok = ((obs_k >= 0) & _row(m.kf_kp_valid, kf) & _take(m.pt_valid, obs_k)
           & (_take(cnt, obs_k) >= min_obs))
     return ok.sum()
 
@@ -314,8 +327,8 @@ def local_keyframe_mask(m: MapState, obs_pt, max_kfs: int = 80, ref_kf=None) -> 
     """UpdateLocalKeyFrames: keyframes observing the current frame's matched
     points, capped at the `max_kfs` best voters, plus the best voter's
     covisible neighbours (up to 10 sharing >= 15 points). With no vote,
-    `ref_kf` (a host int) seeds the local map. Rankings use stable sorts,
-    as jnp.argsort. Returns a (K,) bool mask."""
+    `ref_kf` (a host int, or a 1-element index tensor) seeds the local map.
+    Rankings use stable sorts, as jnp.argsort. Returns a (K,) bool mask."""
     K = m.kf_obs_pt.shape[0]
     P = m.capacity_pt
     dev = m.kf_obs_pt.device
@@ -327,9 +340,10 @@ def local_keyframe_mask(m: MapState, obs_pt, max_kfs: int = 80, ref_kf=None) -> 
     has = (m.kf_obs_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
     pt = torch.where(has, m.kf_obs_pt, P).long()
     votes = (has & matched[pt]).sum(dim=1, dtype=torch.int32)  # keyframeCounter
-    if ref_kf is not None:  # a host int: no host->device copy
-        seeded = votes.index_add(0, torch.full((1,), max(int(ref_kf), 0), device=dev),
-                                 torch.ones(1, dtype=torch.int32, device=dev))
+    if ref_kf is not None:  # a host int or a device index: no host->device copy
+        seed = (ref_kf.reshape(1).long().clamp(min=0) if isinstance(ref_kf, torch.Tensor)
+                else torch.full((1,), max(int(ref_kf), 0), device=dev))
+        seeded = votes.index_add(0, seed, torch.ones(1, dtype=torch.int32, device=dev))
         votes = torch.where((votes > 0).any(), votes, seeded)
     top = torch.argsort(-votes, stable=True)[:max_kfs]
     mask = torch.zeros(K, dtype=torch.bool, device=dev).index_put((top,), votes[top] > 0)
@@ -352,88 +366,143 @@ FUSED_NM = 32         # raw motion-model match count (diagnostics)
 FUSED_LEN = 33
 
 
-def _fused_track_core(cam: PinholeCamera, m: MapState, last_feats: FrameFeatures, last_obs,
-                      last_R, last_t, vel_R, vel_t, has_vel: bool, feats: FrameFeatures,
-                      ref_kf: int, inv_sigma2_table, th_depth, accept_thr,
-                      scale_factor: float, n_levels: int, min_inliers_motion: int,
-                      depth: bool, max_local_pts: int, cand_cap: int):
-    """The steady-state tracking step (Tracking::Track's OK path):
+# The map fields each track segment reads: a graph's copy-in moves these
+# and no others (pipeline/graphs.py), and map_fields leaves the rest None.
+MM_MAP_FIELDS = ("pt_valid", "pt_xyz")
+REF_MAP_FIELDS = ("kf_obs_pt", "kf_kp_valid", "kf_kp_desc", "kf_kp_angle", "pt_valid", "pt_xyz")
+LOCAL_MAP_FIELDS = ("kf_valid", "kf_R", "kf_t", "kf_obs_pt", "kf_kp_valid", "pt_valid", "pt_xyz",
+                    "pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist", "pt_visible", "pt_found")
 
-      motion-model track (th=7, th=14 retry when it falls short)
-      -> reference-keyframe fallback when the motion model fails
-      -> TrackLocalMap (+ the covisibility subset on large maps)
-      -> NeedNewKeyFrame gates
-      -> velocity, found/visible bookkeeping, pose relative to the ref KF.
 
-    `has_vel` is a host bool. With a velocity the motion model's counts are
-    read once (retry or not) and, after a retry, once more (its verdict):
-    one or two device->host reads. Without one, none. The reference-
-    keyframe branch runs only when the motion model failed, and its verdict
-    stays on the device.
-    """
-    N = feats.xy.shape[0]
-    dev = feats.xy.device
-    ref_c = max(int(ref_kf), 0)
+def map_fields(m: MapState, fields) -> MapState:
+    """m with only `fields` kept, every other field None."""
+    return MapState(**{f: (getattr(m, f) if f in fields else None) for f in MapState._fields})
 
-    pt_idx = last_obs
-    has_pt = (pt_idx >= 0) & last_feats.valid & _take(m.pt_valid, pt_idx)
-    Xw_last = _take(m.pt_xyz, pt_idx)
+
+def mm_segment(cam: PinholeCamera, m: MapState, last_feats: FrameFeatures, last_obs, last_R,
+               last_t, vel_R, vel_t, feats: FrameFeatures, inv_sigma2_table, *, th: float,
+               scale_factor: float, n_levels: int, min_inliers_motion: int):
+    """TrackWithMotionModel at window factor `th` from the last frame's
+    points, as a segment: tensors in, new tensors out, no host read.
+    Returns (R, t, obs (N,) with -1 where unmatched, n_matches, ok), ok the
+    verdict as a device bool (>= 20 matches, >= min_inliers_motion map
+    inliers)."""
+    has_pt = (last_obs >= 0) & last_feats.valid & _take(m.pt_valid, last_obs)
     R_pred, t_pred = se3_compose(vel_R, vel_t, last_R, last_t)
+    R, t, tag, _, n_map, _, n_m = track_motion_model_pts(
+        cam, last_feats, _take(m.pt_xyz, last_obs), last_obs, has_pt, R_pred, t_pred, feats,
+        inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels, th=th,
+    )
+    ok = (n_m >= 20) & (n_map >= min_inliers_motion)
+    return R, t, torch.where(tag >= 0, tag, -1), n_m, ok
 
-    def mm_at(th):
-        R, t, tag, _, n_map, _, n_m = track_motion_model_pts(
-            cam, last_feats, Xw_last, pt_idx, has_pt, R_pred, t_pred, feats,
-            inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels, th=th,
-        )
-        ok = (n_m >= 20) & (n_map >= min_inliers_motion)
-        return (R, t, torch.where(tag >= 0, tag, -1), n_map, n_m), bool(ok)  # one read
 
-    if has_vel:
-        mm, mm_ok = mm_at(7.0)
-        if not mm_ok:
-            mm, mm_ok = mm_at(14.0)  # wider-window retry (Tracking.cc:944: th=2x)
-        R_mm, t_mm, obs_mm, _, nm_mm = mm
-    else:
-        R_mm, t_mm, obs_mm = last_R, last_t, torch.full((N,), -1, dtype=torch.int32, device=dev)
-        nm_mm = torch.zeros((), dtype=torch.int64, device=dev)
-        mm_ok = False
+def ref_segment(cam: PinholeCamera, m: MapState, ref_kf, feats: FrameFeatures, last_R, last_t,
+                inv_sigma2_table):
+    """TrackReferenceKeyFrame from the last frame's pose, as a segment
+    (ref_kf a 1-element index tensor). Returns (R, t, obs, n_matches,
+    n_inliers, ok), ok the verdict on the device (>= 15 matches, >= 10
+    inliers)."""
+    R, t, obs, n_matches, n_inl = track_reference_keyframe(
+        cam, m, ref_kf, feats, last_R, last_t, inv_sigma2_table)
+    return R, t, obs, n_matches, n_inl, (n_matches >= 15) & (n_inl >= 10)
 
-    if mm_ok:
-        R0, t0, obs0 = R_mm, t_mm, obs_mm
-        initial_ok = torch.ones((), dtype=torch.bool, device=dev)
-    else:  # reference-keyframe fallback (TrackReferenceKeyFrame)
-        R0, t0, obs0, n_matches, n_inl_ref = track_reference_keyframe(
-            cam, m, ref_c, feats, last_R, last_t, inv_sigma2_table)
-        initial_ok = (n_matches >= 15) & (n_inl_ref >= 10)
 
+def local_segment(cam: PinholeCamera, m: MapState, ref_kf, feats: FrameFeatures, R0, t0, obs0,
+                  last_R, last_t, initial_ok, mm_ok, n_mm, accept_thr, inv_sigma2_table, *,
+                  th_depth: float, scale_factor: float, n_levels: int, depth: bool,
+                  max_local_pts: int, cand_cap: int):
+    """The rest of the step from the initial estimate (R0, t0, obs0), as a
+    segment: TrackLocalMap (+ the covisibility subset on large maps), the
+    NeedNewKeyFrame gates, then the velocity, the found/visible bookkeeping
+    gated on the device by acceptance, and the pose relative to the
+    reference keyframe. ref_kf and accept_thr are 1-element tensors;
+    initial_ok, mm_ok and n_mm (the motion model's raw match count) device
+    scalars. Returns (R, t, obs, vel_R, vel_t, pt_visible, pt_found, packed
+    (FUSED_LEN,))."""
     local_kf_mask = None
     if 0 < max_local_pts < m.capacity_pt:
-        local_kf_mask = local_keyframe_mask(m, obs0, ref_kf=ref_c)
+        local_kf_mask = local_keyframe_mask(m, obs0, ref_kf=ref_kf)
     R2, t2, obs2, n_inl, visible, found = _track_local_map_core(
         cam, m, R0, t0, feats, obs0, inv_sigma2_table,
         scale_factor=scale_factor, n_levels=n_levels,
         local_kf_mask=local_kf_mask, max_local_pts=max_local_pts, cand_cap=cand_cap,
     )
+    gates = keyframe_gates(m, ref_kf, feats, obs2, th_depth, depth=depth)
+    accept = initial_ok & (n_inl >= accept_thr.reshape(()))
 
-    gates = keyframe_gates(m, ref_c, feats, obs2, th_depth, depth=depth)
-    accept = initial_ok & (n_inl >= accept_thr)
-
-    # Bookkeeping, gated on the device by acceptance.
     accf = accept.to(torch.float32)
     pt_visible = m.pt_visible + accf * visible.to(torch.float32)
     pt_found = m.pt_found + accf * found.to(torch.float32)
     vel_R2, vel_t2 = se3_compose(R2, t2, *se3_inverse(last_R, last_t))
-    rel_R, rel_t = se3_compose(R2, t2, *se3_inverse(m.kf_R[ref_c], m.kf_t[ref_c]))
+    rel_R, rel_t = se3_compose(R2, t2, *se3_inverse(_row(m.kf_R, ref_kf), _row(m.kf_t, ref_kf)))
 
     packed = torch.cat([
-        torch.stack([accf, initial_ok.to(torch.float32),
-                     torch.full((), float(mm_ok), device=dev), n_inl.to(torch.float32)]),
+        torch.stack([accf, initial_ok.to(torch.float32), mm_ok.to(torch.float32),
+                     n_inl.to(torch.float32)]),
         gates,
         rel_R.reshape(-1), rel_t,
         R2.reshape(-1), t2,
-        nm_mm.to(torch.float32).reshape(1),
+        n_mm.to(torch.float32).reshape(1),
     ])
     return R2, t2, obs2, vel_R2, vel_t2, pt_visible, pt_found, packed
+
+
+def call_segment(name: str, fn, static: dict, **inputs):
+    """A segment run eagerly: compose_track_frame's `run` off the graphs."""
+    return fn(**inputs, **static)
+
+
+def compose_track_frame(run, cam: PinholeCamera, m: MapState, last_feats: FrameFeatures,
+                        last_obs, last_R, last_t, vel_R, vel_t, has_vel: bool,
+                        feats: FrameFeatures, ref_kf, inv_sigma2_table, th_depth: float,
+                        accept_thr: float, scale_factor: float, n_levels: int,
+                        min_inliers_motion: int, depth: bool, max_local_pts: int, cand_cap: int):
+    """The steady-state tracking step (Tracking::Track's OK path), each
+    segment through `run(name, fn, static, **tensors)` (call_segment, or
+    StepGraphs.run):
+
+      mm_segment at th=7, at th=14 when it falls short (Tracking.cc:944)
+      -> ref_segment without a velocity or after a failed motion model
+      -> local_segment.
+
+    The host takes the branches: with a velocity the motion model's verdict
+    is read once, and after a th=14 retry once more (one or two
+    device->host reads); without one, none. ref_kf (a host int) and
+    accept_thr go in as 1-element device tensors. Returns local_segment's
+    outputs."""
+    dev = feats.xy.device
+    ref = torch.full((1,), max(int(ref_kf), 0), dtype=torch.int64, device=dev)
+    thr = torch.full((1,), float(accept_thr), device=dev)
+    mm_ok = False
+    n_mm = torch.zeros((), dtype=torch.int64, device=dev)
+    if has_vel:
+        for th in (7.0, 14.0):
+            R0, t0, obs0, n_mm, ok = run(
+                "mm", mm_segment,
+                dict(cam=cam, th=th, scale_factor=scale_factor, n_levels=n_levels,
+                     min_inliers_motion=min_inliers_motion),
+                m=map_fields(m, MM_MAP_FIELDS), last_feats=last_feats, last_obs=last_obs,
+                last_R=last_R, last_t=last_t, vel_R=vel_R, vel_t=vel_t, feats=feats,
+                inv_sigma2_table=inv_sigma2_table)
+            mm_ok = bool(ok)  # the verdict: one read
+            if mm_ok:
+                break
+    if mm_ok:
+        initial_ok = torch.ones((), dtype=torch.bool, device=dev)
+    else:  # reference-keyframe fallback (TrackReferenceKeyFrame)
+        R0, t0, obs0, _, _, initial_ok = run(
+            "ref", ref_segment, dict(cam=cam),
+            m=map_fields(m, REF_MAP_FIELDS), ref_kf=ref, feats=feats, last_R=last_R,
+            last_t=last_t, inv_sigma2_table=inv_sigma2_table)
+    return run(
+        "local", local_segment,
+        dict(cam=cam, th_depth=float(th_depth), scale_factor=scale_factor, n_levels=n_levels,
+             depth=depth, max_local_pts=max_local_pts, cand_cap=cand_cap),
+        m=map_fields(m, LOCAL_MAP_FIELDS), ref_kf=ref, feats=feats, R0=R0, t0=t0, obs0=obs0,
+        last_R=last_R, last_t=last_t, initial_ok=initial_ok,
+        mm_ok=torch.full((), mm_ok, dtype=torch.bool, device=dev), n_mm=n_mm, accept_thr=thr,
+        inv_sigma2_table=inv_sigma2_table)
 
 
 def fused_track_frame(cam: PinholeCamera, m: MapState, last_feats: FrameFeatures, last_obs,
@@ -441,44 +510,72 @@ def fused_track_frame(cam: PinholeCamera, m: MapState, last_feats: FrameFeatures
                       ref_kf: int, inv_sigma2_table, th_depth, accept_thr,
                       scale_factor: float = 1.2, n_levels: int = 8,
                       min_inliers_motion: int = 10, depth: bool = False,
-                      max_local_pts: int = 0, cand_cap: int = 0):
+                      max_local_pts: int = 0, cand_cap: int = 0, run=call_segment):
     """The steady-state frame step over precomputed FrameFeatures (the
-    stereo / RGB-D / multi-stream entry; see _fused_track_core). Returns
-    (R, t, obs, vel_R, vel_t, pt_visible, pt_found, packed (FUSED_LEN,))."""
-    return _fused_track_core(
-        cam, m, last_feats, last_obs, last_R, last_t, vel_R, vel_t, has_vel,
+    stereo / RGB-D / multi-stream entry): compose_track_frame's segments,
+    each through `run` (eagerly by default; StepGraphs.run replays them).
+    Returns (R, t, obs, vel_R, vel_t, pt_visible, pt_found, packed
+    (FUSED_LEN,))."""
+    return compose_track_frame(
+        run, cam, m, last_feats, last_obs, last_R, last_t, vel_R, vel_t, has_vel,
         feats, ref_kf, inv_sigma2_table, th_depth, accept_thr,
         scale_factor, n_levels, min_inliers_motion, depth, max_local_pts, cand_cap,
     )
+
+
+def mono_features(cam: PinholeCamera, f) -> FrameFeatures:
+    """FrameFeatures of one image's ORBFeatures: undistorted xy, no depth."""
+    xy = f.xy
+    if abs(cam.k1) > 1e-12 or abs(cam.k2) > 1e-12:
+        xy = undistort_points(cam, xy)
+    n = xy.shape[0]
+    return FrameFeatures(xy=xy, level=f.level, angle=f.angle, desc=f.desc, valid=f.valid,
+                         u_right=torch.full((n,), -1.0, device=xy.device),
+                         depth=torch.zeros((n,), device=xy.device))
+
+
+def mono_frame_features(img: torch.Tensor, cam: PinholeCamera, orb) -> FrameFeatures:
+    """A monocular frame's FrameFeatures from the raw (H, W) image: ORB
+    extraction (both CUDA kernels on a card) and undistortion. No
+    device->host read on a card."""
+    return mono_features(cam, extract_orb(img, orb))
+
+
+def rgbd_frame_features(img: torch.Tensor, depth_map: torch.Tensor, cam: PinholeCamera, orb,
+                        depth_map_factor: float) -> FrameFeatures:
+    """Frame::ComputeStereoFromRGBD: the depth image (scaled by
+    depth_map_factor) at each keypoint's raw, distorted position, and the
+    virtual right coordinate from the undistorted one. One extraction gives
+    both positions; no device->host read on a card."""
+    f = extract_orb(img, orb)
+    feats = mono_features(cam, f)
+    H, W = depth_map.shape
+    xs = torch.clamp(torch.round(f.xy[:, 0]).long(), 0, W - 1)
+    ys = torch.clamp(torch.round(f.xy[:, 1]).long(), 0, H - 1)
+    d = depth_map[ys, xs] * depth_map_factor
+    has_d = (d > 0) & feats.valid
+    # float32(bf) / d, a true division, as the JAX package divides.
+    ur = feats.xy[:, 0] - torch.full_like(d, cam.bf) / torch.clamp(d, min=1e-6)
+    return feats._replace(u_right=torch.where(has_d, ur, -1.0),
+                          depth=torch.where(has_d, d, 0.0))
 
 
 def fused_track_frame_image(cam: PinholeCamera, orb, m: MapState, img: torch.Tensor,
                             last_feats: FrameFeatures, last_obs, last_R, last_t,
                             vel_R, vel_t, has_vel: bool, ref_kf: int, inv_sigma2_table,
                             accept_thr, min_inliers_motion: int = 10,
-                            max_local_pts: int = 0, cand_cap: int = 0):
-    """The monocular frame step from the raw (H, W) image: ORB extraction
-    (both CUDA kernels on a card), undistortion and the whole tracking OK
-    path. Returns (feats, *fused_track_frame outputs)."""
-    from tpuslam_torch.ops.orb import extract_orb
-
-    f = extract_orb(img, orb)
-    xy = f.xy
-    if abs(cam.k1) > 1e-12 or abs(cam.k2) > 1e-12:
-        xy = undistort_points(cam, xy)
-    n = xy.shape[0]
-    feats = FrameFeatures(
-        xy=xy, level=f.level, angle=f.angle, desc=f.desc, valid=f.valid,
-        u_right=torch.full((n,), -1.0, device=img.device),
-        depth=torch.zeros((n,), device=img.device),
-    )
-    out = _fused_track_core(
-        cam, m, last_feats, last_obs, last_R, last_t, vel_R, vel_t, has_vel,
+                            max_local_pts: int = 0, cand_cap: int = 0, run=call_segment):
+    """The monocular frame step from the raw (H, W) image: mono_frame_features
+    (the segment "front") and the whole tracking OK path, each segment
+    through `run`. Returns (feats, *fused_track_frame outputs)."""
+    feats = run("front", mono_frame_features, dict(cam=cam, orb=orb), img=img)
+    out = compose_track_frame(
+        run, cam, m, last_feats, last_obs, last_R, last_t, vel_R, vel_t, has_vel,
         feats, ref_kf, inv_sigma2_table, 0.0, accept_thr,
         orb.scale_factor, orb.n_levels, min_inliers_motion, False,
         max_local_pts, cand_cap,
     )
-    return (feats,) + out
+    return (feats,) + tuple(out)
 
 
 def stereo_features(fb, atlas: torch.Tensor, left: int, right: int, img_shape: tuple,

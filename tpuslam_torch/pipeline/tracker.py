@@ -30,11 +30,14 @@ before it returns, and what it made is marked with the reading stream
 (`record_stream`) when it is adopted.
 
 The device is the tracker's (`device`, "cuda" unless the caller asks for
-the CPU). A steady-state frame makes one packed device->host fetch beyond
-the fused step's own verdict read; keyframe slots are assigned on the host,
-so insertion never reads the device watermark. Random hypotheses (two-view
-and PnP RANSAC) come from a torch.Generator the tracker owns, seeded from
-its config, through `_draw_picks`.
+the CPU). The steady-state frame step and the depth sensors' front ends go
+through `StepGraphs` (pipeline/graphs.py): on a card each segment is a
+captured CUDA graph, replayed every frame; on the CPU the segments run on
+the same static buffers. A steady-state frame makes one packed
+device->host fetch beyond the step's own verdict read; keyframe slots are
+assigned on the host, so insertion never reads the device watermark.
+Random hypotheses (two-view and PnP RANSAC) come from a torch.Generator
+the tracker owns, seeded from its config, through `_draw_picks`.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import PinholeCamera, undistort_points, unproject
+from tpuslam_torch.geometry.camera import PinholeCamera, unproject
 from tpuslam_torch.geometry.se3 import se3_apply, se3_compose, se3_inverse
 from tpuslam_torch.mapstate.core import (
     FrameFeatures,
@@ -69,6 +72,7 @@ from tpuslam_torch.optim.ba import BAProblem, bundle_adjustment
 from tpuslam_torch.optim.linalg import load_cuda_linalg
 from tpuslam_torch.pipeline import steps
 from tpuslam_torch.pipeline._index import scatter_last
+from tpuslam_torch.pipeline.graphs import StepGraphs
 from tpuslam_torch.pipeline.loop_closing import LoopCloser
 from tpuslam_torch.place.database import SparseBow, SparseKeyFrameDatabase
 from tpuslam_torch.place.vocabulary import sparse_bow_vector, vocabulary_from_arrays
@@ -191,7 +195,11 @@ class Tracker:
         # Block at each mapping stage's end so the stage timers hold device time.
         self.stage_sync = False
         self.metrics = Metrics()
-        self.stats = {"dispatches": 0, "syncs": 0, "fused_frames": 0, "slow_frames": 0}
+        # graph_replays: steady-state frames whose step ran as graph
+        # replays; graph_captures: graphs captured.
+        self.stats = {"dispatches": 0, "syncs": 0, "fused_frames": 0, "slow_frames": 0,
+                      "graph_replays": 0, "graph_captures": 0}
+        self.graphs = StepGraphs(self.device, self.metrics)
         # Trajectory: (frame_id, ref_kf, R_rel, t_rel, lost), resolved against
         # the optimized keyframe poses at export.
         self.trajectory = []
@@ -236,16 +244,18 @@ class Tracker:
     def __getstate__(self):
         """copy.deepcopy (and pickle) take an idle tracker's state without
         its background machinery (threads, streams, the interrupt event,
-        the mapping process): the copy maps synchronously."""
+        the mapping process) and without its captured graphs: the copy maps
+        synchronously and captures its own."""
         state = dict(self.__dict__)
         for k in ("_mapping_pool", "_gba_pool", "_mapping_future", "_gba_future", "_map_stream",
-                  "_gba_stream", "_remote_mapper", "_mapping_interrupt"):
+                  "_gba_stream", "_remote_mapper", "_mapping_interrupt", "graphs"):
             state[k] = None
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._mapping_interrupt = threading.Event()
+        self.graphs = StepGraphs(self.device, self.metrics)
 
     def _new_loop_closer(self, voc) -> LoopCloser:
         lc = LoopCloser(self.cfg.max_keyframes, fix_scale=False, voc=voc)
@@ -339,14 +349,7 @@ class Tracker:
 
     def _mono_features(self, f) -> FrameFeatures:
         """FrameFeatures of one image's ORBFeatures: undistorted xy, no depth."""
-        xy = f.xy
-        c = self.cfg.cam
-        if abs(c.k1) > 1e-12 or abs(c.k2) > 1e-12:
-            xy = undistort_points(c, xy)
-        n = xy.shape[0]
-        return FrameFeatures(xy=xy, level=f.level, angle=f.angle, desc=f.desc, valid=f.valid,
-                             u_right=torch.full((n,), -1.0, device=xy.device),
-                             depth=torch.zeros((n,), device=xy.device))
+        return steps.mono_features(self.cfg.cam, f)
 
     def _frame_features(self, img: torch.Tensor, init: bool = False) -> FrameFeatures:
         return self._mono_features(extract_orb(img, self._init_orb if init else self.cfg.orb))
@@ -585,19 +588,6 @@ class Tracker:
             return se3_compose(*self._velocity, self._last_R, self._last_t)
         return self._last_R, self._last_t
 
-    def _ref_kf_estimate(self, feats: FrameFeatures):
-        """TrackReferenceKeyFrame from the last frame's pose. Returns (ok, R,
-        t, obs): >= 15 matches to try, >= 10 map inliers to accept."""
-        ref = self._last_kf_idx
-        if ref < 0:
-            return False, None, None, None
-        R, t, obs, n_matches, n_inl = steps.track_reference_keyframe(
-            self.cfg.cam, self.map, ref, feats, self._last_R, self._last_t, self.inv_sigma2)
-        nm, ni = self._fetch(n_matches, n_inl)
-        if nm < 15 or ni < 10:
-            return False, None, None, None
-        return True, R, t, obs
-
     def _accept_thr(self, frame_id: int) -> int:
         """TrackLocalMap's inlier bar: 50 within kf_max_frames of a
         relocalization."""
@@ -608,10 +598,11 @@ class Tracker:
 
     def _track_frame(self, feats: Optional[FrameFeatures], frame_id: int,
                      img: Optional[torch.Tensor] = None) -> bool:
-        """The steady-state frame: the fused step (from the image when `img`
-        is given) and one packed fetch. A motion-model estimate that
-        TrackLocalMap rejects is retried through the reference keyframe. A
-        finished background mapping job is adopted first."""
+        """The steady-state frame: the step's segments (from the image, with
+        the front end ahead, when `img` is given) replayed from their
+        graphs on a card, and one packed fetch. A motion-model estimate
+        that TrackLocalMap rejects is retried through the reference
+        keyframe. A finished background mapping job is adopted first."""
         self._poll_mapping()
         if self.localization_mode and self._depth_mode:
             return self._track_frame_localization(feats, frame_id)
@@ -623,7 +614,12 @@ class Tracker:
                                                         torch.zeros(3, device=dev))
         ref = max(self._last_kf_idx, 0)
         common = dict(min_inliers_motion=cfg.min_inliers_motion,
-                      max_local_pts=self._local_subset_cap(), cand_cap=self._cand_cap())
+                      max_local_pts=self._local_subset_cap(), cand_cap=self._cand_cap(),
+                      run=self.graphs.run)
+        # A frame from the image tracks as fused_track_frame_image does (no
+        # depth gates), the slow-frame retry too.
+        th_depth, depth = (0.0, False) if img is not None else (self._th_depth, self._depth_mode)
+        replays = self.graphs.replays
         with self.metrics.stage("track.dispatch"):
             if img is not None:
                 feats, *out = steps.fused_track_frame_image(
@@ -634,10 +630,12 @@ class Tracker:
                 out = steps.fused_track_frame(
                     cfg.cam, self.map, self._last_feats, self._last_obs, self._last_R,
                     self._last_t, vel_R, vel_t, has_vel, feats, ref, self.inv_sigma2,
-                    self._th_depth, float(thr), scale_factor=cfg.orb.scale_factor,
-                    n_levels=cfg.orb.n_levels, depth=self._depth_mode, **common)
+                    th_depth, float(thr), scale_factor=cfg.orb.scale_factor,
+                    n_levels=cfg.orb.n_levels, depth=depth, **common)
         R, t, obs, vel_R2, vel_t2, pt_visible, pt_found, packed = out
         self.stats["dispatches"] += 1
+        self.stats["graph_replays"] += self.graphs.replays > replays
+        self.stats["graph_captures"] = self.graphs.captures
         with self.metrics.stage("track.fetch"):
             p = packed.cpu().numpy()  # the per-frame device->host read
         self.stats["syncs"] += 1
@@ -668,32 +666,31 @@ class Tracker:
                 self._last_pose_np = (p[o:o + 9].reshape(3, 3), p[o + 9:o + 12])
             return True
 
-        if used_mm:
+        if used_mm and self._last_kf_idx >= 0:
             # The motion model passed its gates on a few aliased matches but
             # TrackLocalMap rejected the pose: retry through the reference
-            # keyframe before declaring LOST.
+            # keyframe (the step without a velocity) before declaring LOST.
             self.stats["slow_frames"] += 1
-            ok, R2, t2, obs2 = self._ref_kf_estimate(feats)
-            if ok:
-                R, t, obs, n_inl, visible, found = self._track_local_map(self.map, R2, t2, feats, obs2)
-                g = steps.keyframe_gates(self.map, ref, feats, obs, self._th_depth,
-                                         depth=self._depth_mode)
-                packed2 = self._fetch(n_inl, *g)
-                n_tracked = int(packed2[0])
-                if n_tracked >= thr:
-                    self.map = self.map._replace(
-                        pt_visible=self.map.pt_visible + visible.to(torch.float32),
-                        pt_found=self.map.pt_found + found.to(torch.float32))
-                    self._velocity = se3_compose(R, t, *se3_inverse(self._last_R, self._last_t))
-                    self._last_R, self._last_t = R, t
-                    self._last_feats = feats
-                    self._last_obs = obs
-                    self._frames_since_kf += 1
-                    self._last_pose_np = None
-                    if self._need_new_keyframe(n_tracked, frame_id, packed2[1:]):
-                        self._create_keyframe(feats, obs, R, t, frame_id)
-                    self._record_pose(frame_id, self._last_R, self._last_t)
-                    return True
+            R, t, obs, vel_R2, vel_t2, pt_visible, pt_found, packed = steps.fused_track_frame(
+                cfg.cam, self.map, self._last_feats, self._last_obs, self._last_R, self._last_t,
+                torch.eye(3, device=dev), torch.zeros(3, device=dev), False, feats, ref,
+                self.inv_sigma2, th_depth, float(thr), scale_factor=cfg.orb.scale_factor,
+                n_levels=cfg.orb.n_levels, depth=depth, **common)
+            p = packed.cpu().numpy()
+            if p[steps.FUSED_ACCEPT] > 0.5:
+                n_tracked = int(p[steps.FUSED_N_TRACKED])
+                self.map = self.map._replace(pt_visible=pt_visible, pt_found=pt_found)
+                self._velocity = (vel_R2, vel_t2)
+                self._last_R, self._last_t = R, t
+                self._last_feats = feats
+                self._last_obs = obs
+                self._frames_since_kf += 1
+                self._last_pose_np = None
+                if self._need_new_keyframe(n_tracked, frame_id,
+                                           p[steps.FUSED_GATES:steps.FUSED_GATES + 4]):
+                    self._create_keyframe(feats, obs, R, t, frame_id)
+                self._record_pose(frame_id, self._last_R, self._last_t)
+                return True
         return False
 
     def _need_new_keyframe(self, n_tracked: int, frame_id: int, gates) -> bool:
@@ -1221,25 +1218,16 @@ class Tracker:
 
     def _frame_features_stereo(self, img_left: torch.Tensor, img_right: torch.Tensor) -> FrameFeatures:
         c = self.cfg.cam
-        return steps.stereo_frame_features(img_left, img_right, self.cfg.orb, c.fx, c.bf)
+        return self.graphs.run("front", steps.stereo_frame_features,
+                               dict(config=self.cfg.orb, fx=c.fx, bf=c.bf), imgL=img_left, imgR=img_right)
 
     def _frame_features_rgbd(self, img: torch.Tensor, depth_map: torch.Tensor) -> FrameFeatures:
-        """Frame::ComputeStereoFromRGBD: the depth image (scaled by
-        depth_map_factor) at each keypoint's raw, distorted position, and
-        the virtual right coordinate from the undistorted one. One
-        extraction gives both positions."""
-        f = extract_orb(img, self.cfg.orb)
-        feats = self._mono_features(f)
-        c = self.cfg.cam
-        H, W = depth_map.shape
-        xs = torch.clamp(torch.round(f.xy[:, 0]).long(), 0, W - 1)
-        ys = torch.clamp(torch.round(f.xy[:, 1]).long(), 0, H - 1)
-        d = depth_map[ys, xs] * self.cfg.depth_map_factor
-        has_d = (d > 0) & feats.valid
-        # float32(bf) / d, a true division, as the JAX package divides.
-        ur = feats.xy[:, 0] - torch.full_like(d, c.bf) / torch.clamp(d, min=1e-6)
-        return feats._replace(u_right=torch.where(has_d, ur, -1.0),
-                              depth=torch.where(has_d, d, 0.0))
+        """steps.rgbd_frame_features at the tracker's camera, ORB settings
+        and depth_map_factor."""
+        cfg = self.cfg
+        return self.graphs.run("front", steps.rgbd_frame_features,
+                               dict(cam=cfg.cam, orb=cfg.orb, depth_map_factor=cfg.depth_map_factor),
+                               img=img, depth_map=depth_map)
 
     def _point_ranges(self, dist: torch.Tensor, level: torch.Tensor):
         """MapPoint::UpdateNormalAndDepth's scale-invariance range (the

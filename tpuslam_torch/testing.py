@@ -330,7 +330,8 @@ def build_depth_session(scene: StepWallScene, cam: PinholeCamera, cfg: ORBConfig
                         K: int, N_cap: int, P: int, kf_every: int, device="cpu",
                         min_inliers_motion: int = 10, accept_thr: float = 30.0,
                         max_local_pts: int = 0, cand_cap: int = 0,
-                        snapshot_at=(), on_frame=None) -> DepthSession:
+                        snapshot_at=(), on_frame=None,
+                        step=fused_track_frame_image) -> DepthSession:
     """A coherent map built by the port alone, frame by frame, along
     `poses` (world->camera, from orbit_trajectory):
 
@@ -351,6 +352,8 @@ def build_depth_session(scene: StepWallScene, cam: PinholeCamera, cfg: ORBConfig
     Keyframes come at a fixed cadence, not from NeedNewKeyFrame, so the
     session is deterministic. `snapshot_at` lists frames whose input state
     and image are kept; `on_frame(i, record)` runs after each tracked frame.
+    `step` takes fused_track_frame_image's place (its arguments, its
+    results).
     """
     scale_factors, inv_sigma2 = scale_tables(cfg, device)
     m = make_empty_map(K, N_cap, P, device)
@@ -382,7 +385,7 @@ def build_depth_session(scene: StepWallScene, cam: PinholeCamera, cfg: ORBConfig
         img_t, z = render(i)
         if i in snapshot_at:
             snapshots[i] = (st, img_t)
-        feats, R, t, obs, vel_R, vel_t, pt_visible, pt_found, packed = fused_track_frame_image(
+        feats, R, t, obs, vel_R, vel_t, pt_visible, pt_found, packed = step(
             cam, cfg, st.m, img_t, st.last_feats, st.last_obs, st.last_R, st.last_t,
             st.vel_R, st.vel_t, st.has_vel, st.ref_kf, inv_sigma2, accept_thr,
             min_inliers_motion=min_inliers_motion, max_local_pts=max_local_pts,
