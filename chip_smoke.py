@@ -13,16 +13,21 @@ Phases, any failure exits non-zero:
      windows; then a child process whose window leaves the atlas must die
      of the kernel's device-side assert;
   4. slice: track_step_batched at 640x480, 1000 ORB features, B=4 streams,
-     L=4096 local-map points on a coherent synthetic scene; every kernel must
-     have launched, each stream must land on its ground-truth pose, and the
-     same inputs through the port on the CPU must agree;
-  map slice: the per-frame step the tracker runs, fused_track_frame_image,
-     over a MapState at the tracker's default capacities (1536 keyframes,
-     2000 keypoint slots, 200,000 points; local subset 16384, candidate cap
-     8192), along a session built by testing.build_depth_session: every
-     frame accepted within 1 cm / 0.2 deg of ground truth, both branches
-     taken, both kernels launched on every frame, and one mid-session state
-     through the port on the CPU agreeing with the card;
+     L=4096 local-map points on a coherent synthetic scene, through a
+     StepGraphs (the step one CUDA graph, captured at the first call); every
+     kernel must have launched, each stream must land on its ground-truth
+     pose, the same inputs through the port on the CPU must agree, and the
+     step run eagerly must be torch.equal to the graphed one (ms per step
+     both ways in turns, host API calls, device->host reads, the capture);
+  map slice: the per-frame step the tracker runs, fused_track_frame_image
+     through a StepGraphs as the tracker runs it (phase graphs runs every
+     frame eagerly too), over a MapState at the tracker's default
+     capacities (1536 keyframes, 2000 keypoint slots, 200,000 points; local
+     subset 16384, candidate cap 8192), along a session built by
+     testing.build_depth_session: every frame accepted within 1 cm / 0.2
+     deg of ground truth, both branches taken, both kernels launched on
+     every frame, and one mid-session state through the port on the CPU
+     agreeing with the card;
   graphs: the map slice's 161-frame path again, each frame's step run
      both ways in turns on the same state: eagerly (fused_track_frame_image)
      and through StepGraphs (pipeline/graphs.py: each segment of the step a
@@ -60,7 +65,10 @@ Phases, any failure exits non-zero:
      snapshot) on the CPU against the card, and a forced LOST relocalized
      from an earlier frame at its true place through the BoW database's
      keyframe candidates (the brute-force branch must not run; it is then
-     timed alone on the same frame for comparison). Prints ms per frame by branch,
+     timed alone on the same frame for comparison); the first call pays the
+     relocalization's captures, then the same relocalization from the same
+     state runs eagerly and graphed in turns (torch.equal, ms both ways,
+     reads no more than eager, host API calls). Prints ms per frame by branch,
      the keyframe frames split by stage, global BA, relocalization, the
      peak memory allocated (the session, one frame, one keyframe job and
      its stages, the relocalization) and a profile of the keyframe job and
@@ -81,16 +89,22 @@ Phases, any failure exits non-zero:
      (it must make no device->host read), reads by frame kind, peak memory,
      one frame's front end on the CPU against the card, then localization
      mode over 20 frames past the mapped region (the map must not change,
-     >= 75% tracked; whether VO mode engaged);
+     >= 75% tracked; whether VO mode engaged), each frame eagerly and
+     graphed from the same state (torch.equal, ms both ways), and the last
+     frame again forced into mbVO (the motion model and the relocalization)
+     both ways;
   RGB-D SLAM: System.track_rgbd at TUM1.yaml's operating point (640x480,
      1000 features, ThDepth 40, depth as uint16 at 5000 per metre; zero
      distortion: the renderer is a pinhole) over 60 frames of a StepWallScene
      at half depth, so keypoints lie on both sides of th_depth (3.09 m):
      the same gates and prints;
   MultiTracker: track_stereo over 2 KITTI-sized streams for 12 frames, one
-     FAST+NMS launch per batched extraction of the 4 images, every frame of
-     every stream tracked within the stereo gates (RGB-D and MultiTracker
-     keep loop closing off, so the phases stay inside the time limit);
+     FAST+NMS launch per batched extraction of the 4 images (the batched
+     front end one CUDA graph), every frame of every stream tracked within
+     the stereo gates, each frame first run eagerly and graphed from the
+     same state (every stream's state torch.equal, ms both ways) (RGB-D and
+     MultiTracker keep loop closing off, so the phases stay inside the time
+     limit);
   place: the shipped 100k-word (k=10, L=5) and 1M-word (k=10, L=6)
      vocabularies on the card; view A of each of the 260 places of
      tpuslam/data/place_eval.npz enrolled in a SparseKeyFrameDatabase, view B
@@ -113,10 +127,13 @@ Phases, any failure exits non-zero:
      must be below half of that before, a 64-keyframe map without revisit
      or drift must close none, and the closing keyframe rerun on the CPU
      from the card's state just before it must pick the same candidate and
-     land within 1 cm and 0.1 deg of the card's corrected poses. Prints ms
-     per keyframe without a candidate, the closing keyframe by stage (Sim3,
-     fusion, essential graph with its GN and CG iterations and launches,
-     global BA), reads per keyframe and peak memory.
+     land within 1 cm and 0.1 deg of the card's corrected poses; the
+     closing keyframe rerun on the card with its CG graphed (blocks of 10
+     iterations, one CUDA graph) and eager, twice each in turns, the
+     corrected map torch.equal. Prints ms per keyframe without a candidate,
+     the closing keyframe by stage (Sim3, fusion, essential graph with its
+     GN and CG iterations, graph and launches, global BA), reads per
+     keyframe and peak memory.
   facade: the mono session's map (saved at the end of phase 6 with
      System.save_map, the JAX package's npz format) loaded into a fresh
      System on the card (and on the CPU, bit-equal), then 20 frames of the mono path localized against it: the
@@ -155,7 +172,8 @@ Phases, any failure exits non-zero:
      iteration, and on phase 6's saved map the sharded covisibility and
      projection search equal to the dense ones.
 The host library (csrc_host/*.cc, g++ and zlib) is built in phase 2 too.
-Each phase prints its wall time. The line before the last is
+Each phase prints its wall time, and their sum at the end. The line
+before the last is
 {"kernels": [...]} (the launches of every phase's main-path run, and the
 stereo shapes' times); the last is {"ok": true, "device": {...}}.
 """
@@ -195,6 +213,7 @@ from tpuslam_torch.ops.orb import (
     extract_orb_batched_atlas,
 )
 from tpuslam_torch.ops.patches import PSIZE, _gather_patches_cuda, gather_patches, gather_patches_plain
+from tpuslam_torch.optim import pose_graph
 from tpuslam_torch.optim.ba import bundle_adjustment
 from tpuslam_torch.parallel.dist_ba import distributed_bundle_adjustment, point_sharded_bundle_adjustment
 from tpuslam_torch.parallel.sharded_map import sharded_covisibility_weights, sharded_search_local_points
@@ -509,15 +528,24 @@ def phase_device_assert() -> None:
         raise AssertionError(f"no device-side assert for a window outside the atlas:\n{out.stderr[-2000:]}")
 
 
-def phase_slice(inp: dict):
+def phase_slice(inp: dict, smi: str):
+    """The batched step through a StepGraphs (its one graph captured at the
+    first call, then replayed): the main path's run, the gates, the CPU
+    run of the same inputs; then the step eagerly, every output torch.equal
+    to the graphed one, and both ways timed in turns with their host API
+    calls and device->host reads. Returns (inputs, launches, the graphed
+    step)."""
     args = [array_to_tensor(inp[k], "cuda") for k in TRACK_STEP_ARGS]
+    graphs = StepGraphs("cuda")
     fast_nms.launches = 0
     gather_patches.launches = 0
     torch.cuda.synchronize()
-    R2, t2, n_inl2, n_valid = track_step_batched(CAM, CFG, *args)
+    t0 = time.perf_counter()
+    R2, t2, n_inl2, n_valid = track_step_batched(CAM, CFG, *args, run=graphs.run)
     torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
     launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
-    log(f"main path launches: {launches}")
+    log(f"main path launches: {launches} (the warm-up before the capture and the first replay)")
     if launches["fast_nms"] < 1 or launches["gather_patches"] < 1:
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
 
@@ -541,7 +569,139 @@ def phase_slice(inp: dict):
         raise AssertionError(f"n_valid CUDA {int(n_validc)} vs CPU {int(n_validp)}")
     torch.testing.assert_close(R2c, Rp, rtol=0, atol=POSE_TOL)
     torch.testing.assert_close(t2c, tp, rtol=0, atol=POSE_TOL)
-    return args, launches
+
+    def graphed():
+        return track_step_batched(CAM, CFG, *args, run=graphs.run)
+
+    def eager():
+        return track_step_batched(CAM, CFG, *args)
+
+    with launches_kept():
+        equal = tree_equal(graphed(), eager())
+        g_ms, e_ms = cuda_ms_turns([graphed, eager], reps=GRAPH_REPS, warmup=1)
+        reads = {w: count_syncs(f)[1] for w, f in (("eager", eager), ("graphed", graphed))}
+        calls = {w: api_calls(f) for w, f in (("eager", eager), ("graphed", graphed))}
+    c = graphs.captured[0]
+    log(f"track_step_batched B={B} on {smi}, graphed against eager: outputs "
+        f"{'torch.equal' if equal else 'DIFFERENT'}; {g_ms:.3f} against {e_ms:.3f} ms per step "
+        f"(CUDA-event medians of {GRAPH_REPS}, in turns), {e_ms / g_ms:.2f}x, "
+        f"{B * 1000.0 / g_ms:.2f} against {B * 1000.0 / e_ms:.2f} frames/s; the first call (warm-up, "
+        f"capture, instantiation, replay) {first_ms:.1f} ms: capture {c['capture_ms']:.1f} ms, "
+        f"instantiation {c['instantiate_ms']:.1f} ms, {c['nodes']} nodes, {c['kernel_nodes']} kernel "
+        f"nodes; {graphs.captures} capture, {graphs.replays} replays; host API calls per step eager {sum(calls['eager'].values())} {calls['eager']}, graphed "
+        f"{sum(calls['graphed'].values())} {calls['graphed']}; device->host reads eager "
+        f"{len(reads['eager'])}, graphed {len(reads['graphed'])}; graph pool "
+        f"{graphs.pool_bytes() / 2**20:.1f} MiB, static buffers {graphs.buffer_bytes() / 2**20:.1f} MiB")
+    if not equal:
+        raise AssertionError("slice: the graphed batched step differs from the eager one")
+    if len(reads["graphed"]) > len(reads["eager"]):
+        raise AssertionError(f"slice: reads graphed {reads['graphed']} against eager {reads['eager']}")
+    return args, launches, graphs
+
+
+@contextlib.contextmanager
+def launches_kept():
+    """The kernels' launch counters as they were before the block: the
+    comparison runs inside it do not count as the main path's."""
+    before = (fast_nms.launches, gather_patches.launches)
+    try:
+        yield
+    finally:
+        fast_nms.launches, gather_patches.launches = before
+
+
+def tree_equal(a, b) -> bool:
+    """Trees of tensors and numpy arrays (tuples, lists, NamedTuples, None)
+    equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(tree_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def tracker_state(tr):
+    """What a frame may change on a tracker (its attributes, its
+    generator's state, the lists and dicts it adds to), so that the same
+    frame can run again from the same state (tracker_restore)."""
+    return dict(tr.__dict__), tr.generator.get_state(), list(tr.trajectory), dict(tr.stats)
+
+
+def tracker_restore(tr, state) -> None:
+    d, gen, traj, stats = state
+    tr.__dict__.clear()
+    tr.__dict__.update(d)
+    tr.generator.set_state(gen)
+    tr.trajectory, tr.stats = list(traj), dict(stats)
+
+
+def tracker_result(tr) -> tuple:
+    """The state a frame leaves, compared graphed against eager."""
+    return (tr.state, tr._last_R, tr._last_t, tr._last_obs, tr._velocity, tr._vo_mode, tr._vo_xyz,
+            tr._vo_valid, tuple(tr.map), tr.trajectory[-1:])
+
+
+def both_ways(restore, call, result, graphs, reps: int = 1, io: bool = False) -> dict:
+    """call() from the same state (restore() before each run), eagerly
+    (every segment of `graphs` through call_segment) and graphed, in
+    turns, reps times each: {"equal": call's output and result() torch.equal
+    in every run, "ms": {way: wall ms per run, card synchronized}, "out":
+    the last graphed output}; with `io` also one more run each way for its
+    device->host reads ("reads") and its host API calls ("calls"). The
+    state left is that of the last run."""
+    ms, got = {"eager": [], "graphed": []}, {"eager": [], "graphed": []}
+
+    def once(way, measure=None):
+        restore()
+        with eager_segments(*graphs) if way == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call() if measure is None else measure(call)
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for r in range(reps):
+        for way in (("eager", "graphed") if r % 2 == 0 else ("graphed", "eager")):
+            out, t = once(way)
+            ms[way].append(t)
+            got[way].append((out, result()))
+    res = dict(ms=ms, out=got["graphed"][-1][0],
+               equal=all(tree_equal(a, b) for a, b in zip(got["eager"], got["graphed"])))
+    if io:
+        res["reads"] = {w: once(w, count_syncs)[0][1] for w in ("eager", "graphed")}
+        res["calls"] = {w: once(w, api_calls)[0] for w in ("eager", "graphed")}
+    return res
+
+
+def io_report(res: dict) -> str:
+    """both_ways' reads and host API calls, for a log line."""
+    r, c = res["reads"], res["calls"]
+    return (f"device->host reads eager {len(r['eager'])}, graphed {len(r['graphed'])} (at {r['graphed']}); "
+            f"host API calls eager {sum(c['eager'].values())} {c['eager']}, graphed "
+            f"{sum(c['graphed'].values())} {c['graphed']}")
+
+
+def captures_report(graphs, since: int = 0) -> str:
+    """The captures of a StepGraphs from record `since` on: segment, capture
+    plus instantiation ms, kernel nodes."""
+    return ", ".join(f"{c['segment']} {c['capture_ms'] + c['instantiate_ms']:.1f} ms / {c['kernel_nodes']} "
+                     f"kernel nodes" for c in graphs.captured[since:]) or "none"
+
+
+@contextlib.contextmanager
+def eager_segments(*graphs):
+    """Every segment of these StepGraphs runs eagerly (call_segment) in the
+    block."""
+    for g in graphs:
+        g.run = steps.call_segment
+    try:
+        yield
+    finally:
+        for g in graphs:
+            del g.run
 
 
 def _fused(st, img, inv_sigma2, has_vel=None, **kwargs):
@@ -583,12 +743,17 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
         per_frame.append({k: now[k] - seen[k] for k in now})
         seen.update(now)
 
+    graphs = StepGraphs(device)  # the step as the tracker runs it; phase graphs runs it eagerly too
+
+    def step(*args, **kwargs):
+        return fused_track_frame_image(*args, **kwargs, run=graphs.run)
+
     fast_nms.launches = 0
     gather_patches.launches = 0
     t0 = time.perf_counter()
     s = build_depth_session(scene, CAM, CFG, poses, MAP["K"], MAP["N_cap"], MAP["P"],
                             MAP_KF_EVERY, device=device, snapshot_at=MAP_SNAP,
-                            on_frame=on_frame, **MAP_STEP)
+                            on_frame=on_frame, step=step, **MAP_STEP)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1167,12 +1332,32 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
         raise AssertionError("mono SLAM: no BoW relocalization candidates")
     tr.state = TrackingState.LOST
     tr._velocity = None
+    lost = tracker_state(tr)
+    n_cap = len(tr.graphs.captured)
     out, reloc_gib = peak_gib(lambda: system.track_monocular(frames[MONO_RELOC_FRAME], 99.0))
     reloc_ms = tr.metrics.timer.samples["track.relocalize"][-1] * 1e3
     if out is None or tr.state != TrackingState.OK:
         raise AssertionError("mono SLAM: no relocalization after a forced LOST")
     if tr.reloc_path != "bow":
         raise AssertionError(f"mono SLAM: the relocalization took the {tr.reloc_path} branch")
+    log(f"  the first relocalization (its segments captured): {reloc_ms:.3f} ms; captures "
+        f"{captures_report(tr.graphs, n_cap)}")
+    # Graphed (replays) against eager on the same frame from the same state.
+    replays = tr.graphs.replays
+    cmp = both_ways(lambda: tracker_restore(tr, lost),
+                    lambda: system.track_monocular(frames[MONO_RELOC_FRAME], 99.0),
+                    lambda: tracker_result(tr), [tr.graphs], reps=3, io=True)
+    log(f"  the relocalization graphed against eager, from the same state (3 runs each, in turns): "
+        f"{'torch.equal' if cmp['equal'] else 'DIFFERENT'} (verdict, pose, assignment, trajectory "
+        f"entry); eager {_ms(cmp['ms']['eager'])}, graphed {_ms(cmp['ms']['graphed'])} (wall, card "
+        f"synchronized); {tr.graphs.replays - replays} segment replays; {io_report(cmp)}")
+    if not cmp["equal"]:
+        raise AssertionError("mono SLAM: the graphed relocalization differs from the eager one")
+    if len(cmp["reads"]["graphed"]) > len(cmp["reads"]["eager"]):
+        raise AssertionError(f"mono SLAM: relocalization reads graphed {cmp['reads']['graphed']} "
+                             f"against eager {cmp['reads']['eager']}")
+    tracker_restore(tr, lost)
+    out = system.track_monocular(frames[MONO_RELOC_FRAME], 99.0)
     R, t = out
     Rg, tg = poses[MONO_RELOC_FRAME]
     err = float(np.linalg.norm(s * (-R.T @ t) @ Ra.T + ta - (-np.asarray(Rg).T @ np.asarray(tg))))
@@ -1203,8 +1388,9 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
         del tr._reloc_candidate_kfs
     log(f"  the brute-force branch alone on the same frame (match over {m.capacity_pt} point slots): "
         f"{bf_ms:.3f} ms ({'relocalized' if bf_ok else 'FAILED'}); profiled: {n_bf} kernel launches, "
-        f"device time {dev_bf / 1e3:.3f} ms of {wall_bf:.3f} ms wall. BoW against brute force: "
-        f"{reloc_ms:.3f} against {bf_ms:.3f} ms, {n_launch} against {n_bf} launches")
+        f"device time {dev_bf / 1e3:.3f} ms of {wall_bf:.3f} ms wall. BoW against brute force, both "
+        f"graphed after their captures: {statistics.median(cmp['ms']['graphed']):.3f} against "
+        f"{bf_ms:.3f} ms, {n_launch} against {n_bf} launches")
     path = f"{work}/mono_map.npz"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1428,9 +1614,13 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
 
 def phase_localization(name: str, system: System, frames: list, poses, smi: str) -> dict:
     """Localization mode after the stereo session: LOC_FRAMES frames past
-    the mapped region against the frozen map, with visual-odometry points.
-    Fails if the map changes or fewer than LOC_TRACKED of them are tracked.
-    Returns the launches of those frames."""
+    the mapped region against the frozen map, with visual-odometry points,
+    each frame run eagerly and graphed from the same state (torch.equal),
+    then the last frame again from the state before it, forced into mbVO
+    (the motion model and the relocalization both), both ways. Fails if the map changes, fewer than
+    LOC_TRACKED of the frames are tracked, or a graphed frame differs from
+    its eager run or reads more. Returns the launches of the graphed
+    frames."""
     tr = system.tracker
     m0 = tr.map
     frozen = {k: getattr(m0, k).clone() for k in ("pt_valid", "pt_xyz", "kf_valid", "kf_R", "kf_t",
@@ -1439,12 +1629,38 @@ def phase_localization(name: str, system: System, frames: list, poses, smi: str)
     fast_nms.launches = 0
     gather_patches.launches = 0
     first = DEPTH_FRAMES + 3
-    tracked, vo, ms = 0, 0, []
+    tracked, vo, ms, eager_ms, bad, io = 0, 0, [], [], [], None
+    replays, n_cap = tr.graphs.replays, len(tr.graphs.captured)
+
+    def frame(i):
+        return depth_session(system, [frames[i]])
+
     for i in range(first, first + LOC_FRAMES):
-        (out, t_ms), = depth_session(system, [frames[i]])
+        state = tracker_state(tr)
+        with launches_kept():
+            cmp = both_ways(lambda: tracker_restore(tr, state), lambda i=i: frame(i)[0][0],
+                            lambda: tracker_result(tr), [tr.graphs], io=i == first + LOC_FRAMES - 1)
+        if not cmp["equal"]:
+            bad.append(f"frame {i}: graphed differs from eager")
+        if cmp.get("reads") is not None:
+            io = cmp
+        eager_ms.append(cmp["ms"]["eager"][0])
+        tracker_restore(tr, state)
+        (out, t_ms), = frame(i)
         tracked += out is not None
         vo += bool(tr._vo_mode)
         ms.append(t_ms)
+    # The last frame again from the state before it, forced into mbVO: the
+    # motion model and the relocalization.
+    end = tracker_state(tr)
+    tracker_restore(tr, state)
+    tr._vo_mode = True
+    forced = tracker_state(tr)
+    with launches_kept():
+        mbvo = both_ways(lambda: tracker_restore(tr, forced), lambda: frame(i)[0][0],
+                         lambda: tracker_result(tr), [tr.graphs], reps=2, io=True)
+    mbvo_path = tr.reloc_path
+    tracker_restore(tr, end)
     system.deactivate_localization_mode()
     launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
     changed = [k for k, v in frozen.items() if not torch.equal(getattr(tr.map, k), v)]
@@ -1457,8 +1673,22 @@ def phase_localization(name: str, system: System, frames: list, poses, smi: str)
     log(f"{name} localization mode on {smi}: {tracked}/{LOC_FRAMES} frames past the mapped region "
         f"tracked, VO mode engaged on {vo} of them; map changed: {changed or 'no'}; centre error "
         f"against the truth (the session's rigid alignment) median {statistics.median(errs) if errs else float('nan'):.4f} m, "
-        f"max {max(errs) if errs else float('nan'):.4f} m; {_ms(ms)} per frame; launches {launches}")
-    bad = graph_report(f"{name} localization", tr)
+        f"max {max(errs) if errs else float('nan'):.4f} m; graphed {_ms(ms)} per frame against eager "
+        f"{_ms(eager_ms)} (each frame both ways from the same state, "
+        f"{LOC_FRAMES - len(bad)}/{LOC_FRAMES} torch.equal); launches {launches}")
+    log(f"  {name} localization graphs: {tr.graphs.replays - replays} segment replays, captures "
+        f"{captures_report(tr.graphs, n_cap)}; the last frame {io_report(io)}")
+    log(f"  frame {i} forced into mbVO (the motion model and the relocalization), twice each way in "
+        f"turns: graphed {'torch.equal' if mbvo['equal'] else 'DIFFERENT from'} eager; eager "
+        f"{_ms(mbvo['ms']['eager'])}, graphed {_ms(mbvo['ms']['graphed'])} (the first graphed run "
+        f"captures the relocalization's segments); tracked {mbvo['out'] is not None}, relocalization "
+        f"branch {mbvo_path}; {io_report(mbvo)}")
+    bad += graph_report(f"{name} localization", tr)
+    for res, what in ((io, "the last frame"), (mbvo, "the mbVO frame")):
+        if len(res["reads"]["graphed"]) > len(res["reads"]["eager"]):
+            bad.append(f"{what}: reads graphed {res['reads']['graphed']} against eager {res['reads']['eager']}")
+    if not mbvo["equal"]:
+        bad.append("the mbVO frame: graphed differs from eager")
     if changed or tracked < LOC_TRACKED * LOC_FRAMES or bad:
         raise AssertionError(f"{name} localization mode: map changed {changed}, tracked "
                              f"{tracked}/{LOC_FRAMES}; {bad}")
@@ -1469,22 +1699,44 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
     """MultiTracker.track_stereo over MULTI_B KITTI-sized streams: one
     batched extraction of the 2B images per frame (exactly one fast_nms
     launch), every frame of every stream tracked, each stream within the
-    stereo session's span and rigid-ATE gates. Returns its launches."""
+    stereo session's span and rigid-ATE gates. Each frame runs first
+    eagerly and graphed from the same state (every stream's pose, state
+    and map torch.equal; the batched front end one graph of its own), then
+    graphed for the session. Returns the session's launches."""
     paths = [orbit_trajectory(MULTI_FRAMES, **p) for p in MULTI_POSES]
     frames = [render_stereo_frames(scene, KITTI_CAM, p, device="cuda") for p in paths]
     mt = MultiTracker.uniform(TrackerConfig(cam=KITTI_CAM, orb=KITTI_ORB, **MULTI_TRACKER), MULTI_B,
                               device="cuda")
+    graphs = [mt.graphs] + [t.graphs for t in mt.trackers]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fast_nms.launches = 0
     gather_patches.launches = 0
-    per_frame, ms, missed = [], [], []
+    per_frame, ms, eager_ms, missed, differ, io = [], [], [], [], [], None
     for i in range(MULTI_FRAMES):
+        def call(i=i):
+            return mt.track_stereo(torch.stack([f[i][0] for f in frames]),
+                                   torch.stack([f[i][1] for f in frames]), i)
+
+        states = [tracker_state(t) for t in mt.trackers]
+
+        def restore(states=states):
+            for t, st in zip(mt.trackers, states):
+                tracker_restore(t, st)
+
+        with launches_kept():
+            cmp = both_ways(restore, call, lambda: [tracker_result(t) for t in mt.trackers], graphs,
+                            io=i == MULTI_FRAMES - 1)
+        if not cmp["equal"]:
+            differ.append(i)
+        if "reads" in cmp:
+            io = cmp
+        eager_ms.append(cmp["ms"]["eager"][0])
+        restore()
         seen = (fast_nms.launches, gather_patches.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = mt.track_stereo(torch.stack([f[i][0] for f in frames]),
-                               torch.stack([f[i][1] for f in frames]), i)
+        outs = call()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         per_frame.append((fast_nms.launches - seen[0], gather_patches.launches - seen[1]))
@@ -1496,11 +1748,20 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
         bad += fails + graph_report(f"stream {b}", tr)
         log(f"  stream {b}: {summary}; {tr._n_kf_host} keyframes")
     log(f"MultiTracker.track_stereo on {smi}: B={MULTI_B} streams at {KITTI_CAM.width}x{KITTI_CAM.height}, "
-        f"{KITTI_ORB.n_features} features, {MULTI_FRAMES} frames: {_ms(ms)} per batched frame; (fast_nms, "
-        f"gather_patches) launches per frame {per_frame}; peak memory allocated "
+        f"{KITTI_ORB.n_features} features, {MULTI_FRAMES} frames: graphed {_ms(ms)} per batched frame, "
+        f"eager {_ms(eager_ms)} (each frame both ways from the same state: "
+        f"{MULTI_FRAMES - len(differ)}/{MULTI_FRAMES} torch.equal); (fast_nms, gather_patches) launches "
+        f"per graphed frame {per_frame}; peak memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"  the batched front end: {mt.graphs.replays} replays, capture {captures_report(mt.graphs)}, graph "
+        f"pool {mt.graphs.pool_bytes() / 2**20:.1f} MiB, static buffers "
+        f"{mt.graphs.buffer_bytes() / 2**20:.1f} MiB; the last frame {io_report(io)}")
     if missed:
         bad.append(f"untracked (frame, stream): {missed}")
+    if differ:
+        bad.append(f"graphed differs from eager at frames {differ}")
+    if len(io["reads"]["graphed"]) > len(io["reads"]["eager"]):
+        bad.append(f"reads graphed {io['reads']['graphed']} against eager {io['reads']['eager']}")
     if any(f != 1 or g != 1 + MULTI_B for f, g in per_frame):
         bad.append(f"launches per frame {per_frame}, want (1, {1 + MULTI_B})")
     if bad:
@@ -1699,34 +1960,63 @@ def phase_loop(smi: str, device: str = "cuda") -> dict:
             f"fusion {st['loop.fuse'][-1] * 1e3:.3f} ms, essential graph {st['loop.essential_graph'][-1] * 1e3:.3f} ms "
             f"({pg['n_live']} live keyframes, {pg['n_edges']} edges, 15 GN iterations, CG iterations per GN "
             f"{cg}, {pg.get('reads', 0)} CG reads), global BA {st['loop.global_ba'][-1] * 1e3:.3f} ms")
-        # One GN iteration replayed under the profiler (each of the 15 runs
-        # the same CG length here; the profiler's own cost grows with events).
+        cgg = pg.get("cg_graph", {})
+        cap_ms = ", ".join(f"{c['capture_ms'] + c['instantiate_ms']:.1f} ms, {c['kernel_nodes']} kernel nodes"
+                           for c in cgg.get("captured", []))
+        log(f"  its CG in blocks of {pose_graph.CG_CHECK_EVERY} iterations, one graph: "
+            f"{cgg.get('captures', 0)} capture ({cap_ms}), {cgg.get('replays', 0)} replays, graph pool "
+            f"{cgg.get('pool_bytes', 0) / 2**20:.1f} MiB, released with the call")
+        # One GN iteration both ways: the graphed one under the profiler
+        # (each of the 15 runs the same CG length here), host API calls.
         a, kw = graphs[-1]
         wall, n_launch, dev_us, top = profile_call(lambda: solve(*a, **dict(kw, iters=1)))
         log(f"  one GN iteration of the essential graph replayed under the profiler (the closure ran "
             f"{kw['iters']}): {n_launch} kernel launches, device time {dev_us / 1e3:.3f} ms of "
             f"{wall:.3f} ms wall; most device time:")
         log_top(top)
+        gn = {w: api_calls(lambda r=r: solve(*a, **dict(kw, iters=1, run=r)))
+              for w, r in (("eager", steps.call_segment), ("graphed", None))}
+        log(f"  host API calls of one GN iteration: eager {sum(gn['eager'].values())} {gn['eager']}, "
+            f"graphed {sum(gn['graphed'].values())} {gn['graphed']}")
         if kc not in snaps:
             bad.append(f"closed at keyframe {kc}, before the revisit")
         else:
             m_snap, lc_cpu = snaps[kc]
             # The same keyframe again on the card from the same state, warm
-            # (the first closure pays the solvers' first calls).
-            lc_warm = lc_cpu.to(device)
-            lc_warm.stage_sync = True
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            (_, c_warm), sites = count_syncs(lambda: lc_warm.on_keyframe(m_snap, LOOP_CAM, kc,
-                                                                         ba_fn=ba._schedule_gba))
-            torch.cuda.synchronize()
-            warm_ms = (time.perf_counter() - t0) * 1e3
-            sw = lc_warm.metrics.timer.samples
-            log(f"  the closing keyframe {kc} again on the card from the same state (warm): {warm_ms:.3f} ms, "
-                f"{len(sites)} device->host reads, closed {c_warm}; detection "
-                f"{sw['loop.detect'][-1] * 1e3:.3f} ms, _compute_sim3 {sw['loop.sim3'][-1] * 1e3:.3f} ms, "
-                f"fusion {sw['loop.fuse'][-1] * 1e3:.3f} ms, essential graph "
-                f"{sw['loop.essential_graph'][-1] * 1e3:.3f} ms, global BA {sw['loop.global_ba'][-1] * 1e3:.3f} ms")
+            # (the first closure pays the solvers' first calls), its CG
+            # graphed (the default) and eager, in turns: the corrected map
+            # torch.equal.
+            warm = {}
+            for way in ("graphed", "eager", "eager", "graphed"):
+                lc_warm = lc_cpu.to(device)
+                lc_warm.stage_sync = True
+                if way == "eager":
+                    lc_warm.cg_run = steps.call_segment
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (m_w, c_w), sites = count_syncs(lambda: lc_warm.on_keyframe(m_snap, LOOP_CAM, kc,
+                                                                            ba_fn=ba._schedule_gba))
+                torch.cuda.synchronize()
+                warm.setdefault(way, []).append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3, closed=c_w, map=m_w, reads=len(sites),
+                    samples=lc_warm.metrics.timer.samples, stats=lc_warm.pose_graph_stats))
+            for way, runs in warm.items():
+                w, sw = runs[-1], runs[-1]["samples"]
+                log(f"  the closing keyframe {kc} again on the card from the same state (warm), its CG "
+                    f"{way}: {_ms([r['ms'] for r in runs])}, {w['reads']} device->host reads "
+                    f"({w['stats'].get('reads', 0)} of them the CG's), closed {w['closed']}; detection "
+                    f"{sw['loop.detect'][-1] * 1e3:.3f} ms, _compute_sim3 {sw['loop.sim3'][-1] * 1e3:.3f} ms, "
+                    f"fusion {sw['loop.fuse'][-1] * 1e3:.3f} ms, essential graph "
+                    f"{_ms([r['samples']['loop.essential_graph'][-1] * 1e3 for r in runs])}, global BA "
+                    f"{sw['loop.global_ba'][-1] * 1e3:.3f} ms")
+            equal = all(tree_equal(tuple(g["map"]), tuple(e["map"]))
+                        for g, e in zip(warm["graphed"], warm["eager"]))
+            log(f"  the corrected map (poses, points, observations), CG graphed against eager: "
+                f"{'torch.equal' if equal else 'DIFFERENT'}")
+            if not equal or not all(r["closed"] for runs in warm.values() for r in runs):
+                bad.append("the closing keyframe: the graphed CG differs from the eager one")
+            if warm["graphed"][0]["reads"] > warm["eager"][0]["reads"]:
+                bad.append("the closing keyframe reads more with its CG graphed")
             cpu = Tracker(cfg, device="cpu")
             t0 = time.perf_counter()
             m_cpu, c_cpu = lc_cpu.on_keyframe(map_to_torch(map_to_numpy(m_snap), "cpu"), LOOP_CAM, kc,
@@ -2354,11 +2644,15 @@ def phase_parallel(smi: str, scene: StepWallScene, stereo_scene: StepWallScene, 
     return {k: a[k] + b[k] for k in a}
 
 
+PHASE_S = {}  # phase name -> wall seconds
+
+
 def timed(name: str, fn, *args):
-    """fn(*args), with the phase's wall time printed."""
+    """fn(*args), with the phase's wall time printed (and kept in PHASE_S)."""
     t0 = time.perf_counter()
     out = fn(*args)
-    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_S[name]:.1f} s")
     return out
 
 
@@ -2421,13 +2715,17 @@ def main() -> int:
 
     err = timed("kernels", phase_kernels, imgs, rng)
     timed("device assert", phase_device_assert)
-    args, launches = timed("slice", phase_slice, inp)
+    args, launches, slice_graphs = timed("slice", phase_slice, inp, smi)
     session, (_, late), map_launches, per_frame = timed("map slice", phase_map, scene)
 
     kt = timed("kernel times", kernel_times, imgs, smi)
-    step_ms = cuda_ms(lambda: track_step_batched(CAM, CFG, *args))
+    with launches_kept():
+        step_ms, eager_ms = cuda_ms_turns([lambda: track_step_batched(CAM, CFG, *args, run=slice_graphs.run),
+                                           lambda: track_step_batched(CAM, CFG, *args)])
     log(f"times on {smi}:")
-    log(f"  track_step_batched B={B}: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s")
+    log(f"  track_step_batched B={B}, graphed: {step_ms:.3f} ms/step, {B * 1000.0 / step_ms:.2f} frames/s "
+        f"(eager {eager_ms:.3f} ms/step, {B * 1000.0 / eager_ms:.2f} frames/s; CUDA-event medians of "
+        f"{REPS}, in turns)")
     timed("map times", map_times, session, late, smi)
     graph_launches = timed("graphs", phase_graphs, scene, smi)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # the mono map, the facade's files
@@ -2442,6 +2740,7 @@ def main() -> int:
     facade_launches = timed("facade", phase_facade, smi, scene, mono, work.name)
     parallel_launches = timed("parallel", phase_parallel, smi, scene, stereo_scene, mono)
     work.cleanup()
+    log(f"phases: {sum(PHASE_S.values()):.1f} s in all")
     for name in err:
         err[name] = max(err[name], sk["err"][name])
 

@@ -19,49 +19,9 @@ from tpuslam.optim.pose_graph import optimize_pose_graph as joptimize
 from tpuslam_torch.geometry.se3 import so3_exp
 from tpuslam_torch.geometry.sim3 import sim3_compose
 from tpuslam_torch.optim.pose_graph import Sim3Edges, make_relative, optimize_pose_graph
+from tpuslam_torch.testing import compose_sim3_chain, drifted_loop, sim3_edges
 
 torch.set_num_threads(2)
-
-
-def _compose_chain(rels):
-    """Absolute poses from relative steps: S_kw = rel_{k-1} * S_{k-1,w}."""
-    s, R, t = [torch.tensor(1.0)], [torch.eye(3)], [torch.zeros(3)]
-    for sr, Rr, tr in rels:
-        sn, Rn, tn = sim3_compose(sr, Rr, tr, s[-1], R[-1], t[-1])
-        s.append(sn)
-        R.append(Rn)
-        t.append(tn)
-    return torch.stack(s), torch.stack(R), torch.stack(t)
-
-
-def _edges(ei, ej, rel):
-    ms, mR, mt = (torch.stack(x) for x in zip(*rel))
-    n = len(ei)
-    return Sim3Edges(i=torch.tensor(ei, dtype=torch.int32), j=torch.tensor(ej, dtype=torch.int32),
-                     meas_s=ms, meas_R=mR, meas_t=mt, valid=torch.ones(n, dtype=torch.bool),
-                     weight=torch.ones(n))
-
-
-def drifted_loop(K, loop_pairs=((None, 0),), bias=(0.002, 0.005, -0.002), step=(0.51, 0.005, -0.005)):
-    """A loop of K nodes: drifted odometry edges consistent with the initial
-    poses plus loop edges with the true relative poses."""
-    w = np.array([0.0, 2 * np.pi / (K - 1), 0.0], np.float32)
-    rel_gt = [(torch.tensor(1.0), so3_exp(torch.from_numpy(w)), torch.tensor([0.5, 0.0, 0.0]))] * (K - 1)
-    wn = (w + np.array(bias, np.float32)).astype(np.float32)
-    rel_n = [(torch.tensor(1.0), so3_exp(torch.from_numpy(wn)), torch.tensor(step, dtype=torch.float32))] * (K - 1)
-    s_gt, R_gt, t_gt = _compose_chain(rel_gt)
-    s0, R0, t0 = _compose_chain(rel_n)
-    ei, ej, rel = [], [], []
-    for k in range(K - 1):
-        ei.append(k)
-        ej.append(k + 1)
-        rel.append(make_relative(s0[k], R0[k], t0[k], s0[k + 1], R0[k + 1], t0[k + 1]))
-    for a, b in loop_pairs:
-        a = K - 1 if a is None else a
-        ei.append(a)
-        ej.append(b)
-        rel.append(make_relative(s_gt[a], R_gt[a], t_gt[a], s_gt[b], R_gt[b], t_gt[b]))
-    return s0, R0, t0, _edges(ei, ej, rel)
 
 
 def to_jax(*xs):
@@ -102,10 +62,10 @@ class TestPoseGraph:
         K = 12
         w = np.array([0.0, 2 * np.pi / (K - 1), 0.0], np.float32)
         rels_gt = [(torch.tensor(1.0), so3_exp(torch.from_numpy(w)), torch.tensor([0.5, 0.0, 0.0]))] * (K - 1)
-        s_gt, R_gt, t_gt = _compose_chain(rels_gt)
+        s_gt, R_gt, t_gt = compose_sim3_chain(rels_gt)
         wn = np.array([0.004, 2 * np.pi / (K - 1) + 0.01, -0.003], np.float32)
         rels_n = [(torch.tensor(1.0), so3_exp(torch.from_numpy(wn)), torch.tensor([0.52, 0.01, -0.01]))] * (K - 1)
-        s0, R0, t0 = _compose_chain(rels_n)
+        s0, R0, t0 = compose_sim3_chain(rels_n)
         ei, ej, rel = [], [], []
         for k in range(K - 1):
             ei.append(k)
@@ -118,7 +78,7 @@ class TestPoseGraph:
         fixed = torch.zeros(K, dtype=torch.bool)
         fixed[0] = True
         s, R, t, errs = optimize_pose_graph(s0, R0, t0, torch.ones(K, dtype=torch.bool), fixed,
-                                            _edges(ei, ej, rel), iters=30)
+                                            sim3_edges(ei, ej, rel), iters=30)
         assert float(errs[-1]) < 0.1 * float(errs[0]), (float(errs[0]), float(errs[-1]))
         _, _, tl = sim3_compose(sr, Rr, tr, s[K - 1], R[K - 1], t[K - 1])
         gap_before = np.linalg.norm(sim3_compose(sr, Rr, tr, s0[K - 1], R0[K - 1], t0[K - 1])[2] - t0[0])

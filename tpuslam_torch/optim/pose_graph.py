@@ -17,7 +17,15 @@ The CG follows jax.scipy.sparse.linalg.cg exactly (x0 = 0, stop when
 |r|^2 <= tol^2 |b|^2 with tol = 1e-6 and atol = 0, or after cg_iters), as a
 fixed-length loop whose state stops changing once converged; every
 CG_CHECK_EVERY iterations one device->host read ends the loop early when
-it has converged, which leaves dx as it is.
+it has converged, which leaves dx as it is. The JAX package runs the CG
+(a lax.while_loop inside the GN scan) as one program. Here a block of
+CG_CHECK_EVERY masked iterations is one segment (`_cg_block`), run
+through `run`: by default a StepGraphs of the call's own, which on a card
+captures the block once per (K, E) and replays it between the reads, and
+is released when the call returns. The GN step's setup (the Jacobians,
+the preconditioner's blocks and their inverse) stays eager, once per GN
+step. scatter_sum's segment_reduce captures without a host sync (on the
+card, torch 2.11).
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpuslam_torch.geometry.sim3 import sim3_compose, sim3_exp, sim3_inverse, sim3_log
-from tpuslam_torch.pipeline._index import scatter_sum, sum_plan
+from tpuslam_torch.pipeline._index import SumPlan, scatter_sum, sum_plan
+from tpuslam_torch.pipeline.graphs import StepGraphs
 
 CG_CHECK_EVERY = 10  # CG iterations between the convergence reads
 
@@ -81,26 +90,47 @@ def _vdot(a, b):
     return torch.sum(a * b)
 
 
-def _cg(matvec, b, precond, maxiter: int, tol: float, stats: dict):
-    """jax.scipy.sparse.linalg.cg's preconditioned CG, as a masked loop."""
-    atol2 = tol * tol * _vdot(b, b)
-    x = torch.zeros_like(b)
-    r = b - matvec(x)
-    z = precond(r)
-    p = z
-    gamma = _vdot(r, z)
-    n_active = torch.zeros((), dtype=torch.int32, device=b.device)
-    for it in range(maxiter):
+class _CGSystem(NamedTuple):
+    """H x (the edge Jacobians, their weighted forms, the edges' ends and
+    the sum plan over them, the pinned coordinates) and the
+    preconditioner's inverse blocks: the CG's inputs of one GN step."""
+
+    Ji: torch.Tensor     # (E, 7, 7)
+    Jj: torch.Tensor
+    wJi: torch.Tensor
+    wJj: torch.Tensor
+    ei: torch.Tensor     # (E,) int64
+    ej: torch.Tensor
+    ends: torch.Tensor   # (2E,) int64: ei then ej
+    plan: SumPlan        # sum_plan(ends, K)
+    pin7: torch.Tensor   # (K, 7) bool
+    Dinv: torch.Tensor   # (K, 7, 7)
+
+
+def _matvec(op: _CGSystem, x, lam: float):
+    K = op.pin7.shape[0]
+    x = torch.where(op.pin7, 0.0, x)
+    u = torch.einsum("erc,ec->er", op.Ji, x[op.ei]) + torch.einsum("erc,ec->er", op.Jj, x[op.ej])
+    y = scatter_sum(K, op.ends, torch.cat([torch.einsum("erc,er->ec", op.wJi, u),
+                                            torch.einsum("erc,er->ec", op.wJj, u)]), op.plan)
+    return torch.where(op.pin7, x, y + lam * x)
+
+
+def _precond(op: _CGSystem, x):
+    return torch.einsum("kij,kj->ki", op.Dinv, x)
+
+
+def _cg_block(op: _CGSystem, x, r, p, gamma, n_active, atol2, *, n: int, lam: float):
+    """n iterations of the masked CG loop from its state (x, r, p, gamma,
+    the count of active iterations): a segment. Returns the new state and
+    whether the next iteration is active (the convergence read's value)."""
+    for _ in range(n):
         active = _vdot(r, r) > atol2
-        if it and it % CG_CHECK_EVERY == 0:
-            stats["reads"] = stats.get("reads", 0) + 1
-            if not bool(active):
-                break
-        Ap = matvec(p)
+        Ap = _matvec(op, p, lam)
         alpha = gamma / _vdot(p, Ap)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
-        z_new = precond(r_new)
+        z_new = _precond(op, r_new)
         gamma_new = _vdot(r_new, z_new)
         p_new = z_new + (gamma_new / gamma) * p
         x = torch.where(active, x_new, x)
@@ -108,18 +138,45 @@ def _cg(matvec, b, precond, maxiter: int, tol: float, stats: dict):
         p = torch.where(active, p_new, p)
         gamma = torch.where(active, gamma_new, gamma)
         n_active = n_active + active.to(torch.int32)
+    return x, r, p, gamma, n_active, _vdot(r, r) > atol2
+
+
+def _cg(op: _CGSystem, b, lam: float, maxiter: int, tol: float, stats: dict, run):
+    """jax.scipy.sparse.linalg.cg's preconditioned CG, as a masked loop:
+    blocks of CG_CHECK_EVERY iterations through `run`, the convergence read
+    between them."""
+    atol2 = tol * tol * _vdot(b, b)
+    x = torch.zeros_like(b)
+    r = b - _matvec(op, x, lam)
+    p = _precond(op, r)
+    gamma = _vdot(r, p)
+    n_active = torch.zeros((), dtype=torch.int32, device=b.device)
+    done = 0
+    while done < maxiter:
+        n = min(CG_CHECK_EVERY, maxiter - done)
+        x, r, p, gamma, n_active, active = run(
+            "cg", _cg_block, dict(n=n, lam=lam), op=op, x=x, r=r, p=p, gamma=gamma,
+            n_active=n_active, atol2=atol2)
+        done += n
+        if done < maxiter:
+            stats["reads"] = stats.get("reads", 0) + 1
+            if not bool(active):
+                break
     stats.setdefault("cg_iters", []).append(n_active)
     return x
 
 
 def optimize_pose_graph(s, R, t, node_valid, node_fixed, edges: Sim3Edges, iters: int = 20,
                         fix_scale: bool = False, lam: float = 1e-6, dense_max_nodes: int = 192,
-                        cg_iters: int = 150, stats: Optional[dict] = None):
+                        cg_iters: int = 150, stats: Optional[dict] = None, run=None):
     """Optimize node Sim3 poses S_iw. node_fixed pins poses (the loop
     keyframe); with fix_scale the scale dimension is projected out. Returns
     (s, R, t, errs (iters,)): errs[k] is the weighted squared residual
     before step k. `stats`, when given, collects each GN step's count of
-    CG iterations (device tensors) and the CG's device->host reads."""
+    CG iterations (device tensors), the CG's device->host reads, and the
+    CG's graph captures, replays and capture records. `run` runs the CG's
+    blocks (pipeline/graphs.py's call_segment runs them eagerly); None
+    gives the call a StepGraphs of its own, released at its return."""
     K = s.shape[0]
     dev = s.device
     stats = {} if stats is None else stats
@@ -131,6 +188,9 @@ def optimize_pose_graph(s, R, t, node_valid, node_fixed, edges: Sim3Edges, iters
     ends = torch.cat([ei, ej])
     by_node = sum_plan(ends, K)
     dense = K <= dense_max_nodes
+    graphs = StepGraphs(dev) if run is None and not dense else None
+    if graphs is not None:
+        run = graphs.run
     if dense:
         blocks = torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei])
         by_block = sum_plan(blocks, K * K)
@@ -163,22 +223,15 @@ def optimize_pose_graph(s, R, t, node_valid, node_fixed, edges: Sim3Edges, iters
             pin7 = pin_node[:, None].expand(K, 7)
             if fix_scale:
                 pin7 = pin7 | scale_dim[None, :]
-
-            def matvec(x):
-                x = torch.where(pin7, 0.0, x)
-                u = torch.einsum("erc,ec->er", Ji, x[ei]) + torch.einsum("erc,ec->er", Jj, x[ej])
-                y = scatter_sum(K, ends, torch.cat([torch.einsum("erc,er->ec", wJi, u),
-                                                    torch.einsum("erc,er->ec", wJj, u)]), by_node)
-                return torch.where(pin7, x, y + lam * x)
-
             D = scatter_sum(K, ends, torch.cat([torch.einsum("eri,erj->eij", wJi, Ji),
                                                 torch.einsum("eri,erj->eij", wJj, Jj)]), by_node)
             D = torch.where(pin7[:, :, None] | pin7[:, None, :], eye7, D + lam * eye7)
-            Dinv = torch.linalg.inv(D)
-            dx = _cg(matvec, torch.where(pin7, 0.0, b),
-                     lambda x: torch.einsum("kij,kj->ki", Dinv, x),
-                     cg_iters, 1e-6, stats)
+            op = _CGSystem(Ji, Jj, wJi, wJj, ei, ej, ends, by_node, pin7, torch.linalg.inv(D))
+            dx = _cg(op, torch.where(pin7, 0.0, b), lam, cg_iters, 1e-6, stats, run)
             dx = torch.where(pin7, 0.0, dx)
         s, R, t = sim3_compose(*sim3_exp(dx), s, R, t)
         errs.append(torch.sum(w * torch.sum(r * r, dim=-1)))
+    if graphs is not None and graphs.captures:
+        stats["cg_graph"] = dict(captures=graphs.captures, replays=graphs.replays,
+                                 captured=graphs.captured, pool_bytes=graphs.pool_bytes())
     return s, R, t, torch.stack(errs)

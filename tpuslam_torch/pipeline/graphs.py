@@ -1,15 +1,21 @@
-"""The steady-state tracking step as captured CUDA graphs (StepGraphs).
+"""The port's compiled programs as captured CUDA graphs (StepGraphs).
 
-The JAX package jits the frame step into one program (tpuslam/pipeline/
-steps.py, fused_track_frame). The port runs it as pure segments
-(steps.mm_segment, ref_segment, local_segment, and a front end:
-mono_frame_features, stereo_frame_features or rgbd_frame_features), with
-the host's branch decisions between them (steps.compose_track_frame). On
-a card each segment is one CUDA graph, captured at its first run for a
-key: the segment, its static arguments (camera, ORB settings, th, depth,
-capacities) and the names, shapes and dtypes of its tensor inputs. A
-replay is one cudaGraphLaunch in place of the segment's thousands of
-kernel launches; the motion model's verdict stays the step's only read.
+The JAX package jits its hot programs: the frame step (tpuslam/pipeline/
+steps.py, fused_track_frame), the batched step bench.py times, the
+batched front end of MultiTracker, relocalization's searches and pose
+optimizations, localization mode's visual odometry, and the essential
+graph's CG. The port runs each as pure segments (tensors in, new tensors
+out, no host read), with the host's branch decisions and the eager calls
+that cannot be captured (cuSOLVER's eigh and svd, the BoW query, shapes
+that follow the map) between them. The frame step's segments are
+steps.mm_segment, ref_segment, local_segment and a front end
+(mono_frame_features, stereo_frame_features or rgbd_frame_features),
+composed by steps.compose_track_frame. On a card each segment is one CUDA
+graph, captured at its first run for a key: the segment, its static
+arguments (camera, ORB settings, th, depth, capacities) and the names,
+shapes and dtypes of its tensor inputs. A replay is one cudaGraphLaunch in
+place of the segment's thousands of kernel launches; the reads between
+segments are the eager form's reads.
 
 The buffer protocol, the same on every device:
   - inputs: every tensor is copied into the key's static buffer, one
@@ -19,9 +25,12 @@ The buffer protocol, the same on every device:
     replaced by mapping at almost every keyframe, so nothing is captured
     on their addresses. A buffer whose last source is the same tensor,
     unmodified since (`_version`), is not copied again.
-  - outputs: returned as new tensors (clones), so nothing the caller keeps
-    aliases a graph's memory, which the next replay of a graph of the same
-    pool may overwrite.
+  - outputs: returned as new tensors (contiguous clones), so nothing the
+    caller keeps aliases a graph's memory, which the next replay of a graph
+    of the same pool may overwrite.
+The static buffers are contiguous, so a segment sees its inputs in
+contiguous layout; call_segment, the eager route, gives it the same
+layouts (a product over a transposed factor can round differently).
 On a card `run` replays the graph; on the CPU it calls the segment on the
 same static buffers, so the CPU tests go through the same copies.
 
@@ -84,6 +93,23 @@ def _graph_nodes(graph: int) -> tuple:
     return n.value, kernels
 
 
+def _contiguous(tree):
+    """tree with every tensor in contiguous layout (the same tensor where
+    it already is)."""
+    leaves = []
+    rebuild = _flatten(tree, "", leaves)
+    return rebuild(iter([t.contiguous() for _, t in leaves]))
+
+
+def call_segment(name: str, fn, static: dict, **inputs):
+    """A segment run eagerly: the `run` of every composed path off the
+    graphs (StepGraphs.run's signature). Its inputs and outputs are in
+    contiguous layout, as StepGraphs' static buffers and clones give them:
+    a product or a reduction can round differently over another layout (a
+    transposed factor from cuSOLVER or LAPACK, an expanded mask)."""
+    return _contiguous(fn(**{k: _contiguous(v) for k, v in inputs.items()}, **static))
+
+
 class _Captured:
     """One segment's graph, its static outputs and captured kernel launches."""
 
@@ -92,9 +118,11 @@ class _Captured:
 
 
 class StepGraphs:
-    """The segments of one tracker's frame step, by key: static input
-    buffers, and on a card the captured graphs, all sharing one memory
-    pool (one capture at a time, replays in the calling thread's order)."""
+    """The segments of one owner's programs (a tracker's frame step and
+    relocalization, a MultiTracker's front end, one essential-graph
+    solve), by key: static input buffers, and on a card the captured
+    graphs, all sharing one memory pool (one capture at a time, replays in
+    the calling thread's order)."""
 
     def __init__(self, device, metrics=None):
         self.device = torch.device(device)
@@ -137,7 +165,8 @@ class StepGraphs:
             out = entry.out
         out_leaves = []
         rebuild_out = _flatten(out, "", out_leaves)
-        return rebuild_out(iter([t.clone() for _, t in out_leaves]))
+        return rebuild_out(iter([t.clone(memory_format=torch.contiguous_format)
+                                 for _, t in out_leaves]))
 
     def _copy_in(self, leaves) -> list:
         """Each input into its static buffer (made at first sight), one
@@ -205,7 +234,8 @@ class StepGraphs:
             t4 = time.perf_counter()
         self.captures += 1
         self.captured.append(dict(
-            segment=key[0], static={k: v for k, v in key[1] if k not in ("cam", "orb", "config")},
+            segment=key[0],
+            static={k: v for k, v in key[1] if k not in ("cam", "cams", "orb", "config", "cfg")},
             warmup_ms=(t1 - t0) * 1e3, capture_ms=(t2 - t1) * 1e3, instantiate_ms=(t4 - t3) * 1e3,
             nodes=nodes, kernel_nodes=kernel_nodes,
             launches={c.__name__: n for c, n in zip(_COUNTERS, launches)}))

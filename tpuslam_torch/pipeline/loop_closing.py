@@ -120,6 +120,11 @@ class LoopCloser:
         self.metrics = Metrics()
         self.stage_sync = False
         self.pose_graph_stats: dict = {}
+        # The essential graph's CG runner (optimize_pose_graph's `run`):
+        # None graphs each solve's CG blocks in a StepGraphs of its own
+        # (CUDA graphs on a card); pipeline/graphs.py's call_segment runs
+        # them eagerly.
+        self.cg_run = None
 
     def to(self, device) -> "LoopCloser":
         """A copy of the closer's whole state (vocabulary, database, caches,
@@ -580,7 +585,7 @@ class LoopCloser:
                 s_c, R_c, t_c, _ = optimize_pose_graph(
                     s_init[sel], R_init[sel], t_init[sel], torch.arange(DENSE_NODES, device=dev) < n_live,
                     nfixed, edges_c, iters=15, fix_scale=self.fix_scale, dense_max_nodes=DENSE_NODES,
-                    stats=stats)
+                    stats=stats, run=self.cg_run)
                 live = _to_device(ov, dev)
                 s_new, R_new, t_new = s_init.clone(), R_init.clone(), t_init.clone()
                 s_new[live], R_new[live], t_new[live] = s_c[:n_live], R_c[:n_live], t_c[:n_live]
@@ -589,7 +594,8 @@ class LoopCloser:
                 node_fixed[kf_loop].fill_(True)
                 s_new, R_new, t_new, _ = optimize_pose_graph(
                     s_init, R_init, t_init, m.kf_valid, node_fixed, edges, iters=15,
-                    fix_scale=self.fix_scale, dense_max_nodes=DENSE_NODES, stats=stats)
+                    fix_scale=self.fix_scale, dense_max_nodes=DENSE_NODES, stats=stats,
+                    run=self.cg_run)
             stats.update(n_live=n_live, n_edges=E)
 
             # Point correction through each point's reference keyframe, then

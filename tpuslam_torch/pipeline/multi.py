@@ -7,7 +7,11 @@ the whole batch. Each stream then matches its stereo pair over the batch's
 atlas (one more gather) and runs its own Tracker: separate maps and
 trajectories, and one stream going LOST does not disturb the others.
 Monocular streams still initializing extract on their own at twice the
-feature budget; only the steady state batches.
+feature budget; only the steady state batches. The batched front end is
+one segment (steps.batched_mono_features or batched_stereo_features, the
+stream indices static) through the MultiTracker's StepGraphs
+(pipeline/graphs.py): one CUDA graph replayed per frame on a card, its
+own memory pool; each stream's tracking step replays its Tracker's graphs.
 """
 
 from __future__ import annotations
@@ -17,8 +21,8 @@ from typing import List, Sequence
 
 import torch
 
-from tpuslam_torch.ops.orb import ORBFeatures, extract_orb_batched, extract_orb_batched_atlas
-from tpuslam_torch.pipeline.steps import stereo_features
+from tpuslam_torch.pipeline import steps
+from tpuslam_torch.pipeline.graphs import StepGraphs
 from tpuslam_torch.pipeline.tracker import Tracker, TrackerConfig, TrackingState
 
 
@@ -37,6 +41,7 @@ class MultiTracker:
                 raise ValueError("all streams must share one ORBConfig")
         self.device = torch.device(device)
         self.trackers: List[Tracker] = [Tracker(c, device=device) for c in configs]
+        self.graphs = StepGraphs(self.device)  # the batched front end's
 
     @classmethod
     def uniform(cls, config: TrackerConfig, n_streams: int, device="cuda") -> "MultiTracker":
@@ -56,13 +61,16 @@ class MultiTracker:
         """(B, H, W) grayscale images, one per stream. Returns one T_cw (R,
         t) or None per stream."""
         imgs = self._input(imgs)
-        steady = [t.state in (TrackingState.OK, TrackingState.LOST) for t in self.trackers]
-        fb = extract_orb_batched(imgs, self.orb) if any(steady) else None
+        steady = tuple(b for b, t in enumerate(self.trackers)
+                       if t.state in (TrackingState.OK, TrackingState.LOST))
+        feats = dict(zip(steady, self.graphs.run(
+            "front", steps.batched_mono_features,
+            dict(orb=self.orb, streams=steady, cams=tuple(self.trackers[b].cfg.cam for b in steady)),
+            imgs=imgs) if steady else ()))
         out = []
         for b, tracker in enumerate(self.trackers):
-            if steady[b]:
-                f = ORBFeatures(*(leaf[b] for leaf in fb))
-                out.append(tracker.track_monocular_features(tracker._mono_features(f), frame_id))
+            if b in feats:
+                out.append(tracker.track_monocular_features(feats[b], frame_id))
             else:
                 out.append(tracker.track_monocular(imgs[b], frame_id))
         return out
@@ -72,15 +80,10 @@ class MultiTracker:
         batch, then each stream's stereo matching and tracking. Returns one
         T_cw (R, t) or None per stream."""
         imgs = torch.cat([self._input(imgs_left), self._input(imgs_right)])
-        B = self.n_streams
-        fb, atlas = extract_orb_batched_atlas(imgs, self.orb)
-        out = []
-        for b, tracker in enumerate(self.trackers):
-            c = tracker.cfg.cam
-            feats = stereo_features(fb, atlas, b, B + b, tuple(imgs.shape[-2:]), self.orb,
-                                    c.fx, c.bf)
-            out.append(tracker.track_depth_features(feats, frame_id))
-        return out
+        feats = self.graphs.run("front", steps.batched_stereo_features,
+                                dict(orb=self.orb, cams=tuple(t.cfg.cam for t in self.trackers)),
+                                imgs=imgs)
+        return [t.track_depth_features(f, frame_id) for t, f in zip(self.trackers, feats)]
 
     def export_trajectories(self):
         return [t.export_trajectory() for t in self.trackers]

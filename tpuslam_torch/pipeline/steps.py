@@ -9,7 +9,12 @@ with no host read, which a card captures as a CUDA graph:
 pipeline/graphs.py), and those branches are host branches between them
 (`compose_track_frame`). `has_vel` is a host bool, as the tracker holds
 it; the motion model's verdict is one device->host read, and the th=14
-retry's one more. Everything else stays on the device.
+retry's one more. Everything else stays on the device. The other
+segments: relocalization's (reloc_match_segment, optimize_frame_pose,
+reloc_search_by_projection, polish_segment), localization mode's
+(vo_motion_segment, ref_segment, polish_segment, vo_points_segment) and
+MultiTracker's batched front ends (batched_mono_features,
+batched_stereo_features).
 
 Scatters follow the JAX package's rules (pipeline/_index.py): the last of
 repeated writes wins, out-of-bounds writes are dropped, and the fixed-size
@@ -29,7 +34,7 @@ import functools
 
 import torch
 
-from tpuslam_torch.geometry.camera import PinholeCamera, project, undistort_points
+from tpuslam_torch.geometry.camera import PinholeCamera, project, undistort_points, unproject
 from tpuslam_torch.geometry.se3 import hat, se3_apply, se3_compose, se3_inverse
 from tpuslam_torch.geometry.triangulation import triangulate_dlt
 from tpuslam_torch.mapstate.core import (
@@ -60,6 +65,7 @@ from tpuslam_torch.pipeline._index import (
     scatter_last_dropping,
     sf_pow,
 )
+from tpuslam_torch.pipeline.graphs import call_segment
 
 
 def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor, scale_factor: float, n_levels: int):
@@ -448,11 +454,6 @@ def local_segment(cam: PinholeCamera, m: MapState, ref_kf, feats: FrameFeatures,
     return R2, t2, obs2, vel_R2, vel_t2, pt_visible, pt_found, packed
 
 
-def call_segment(name: str, fn, static: dict, **inputs):
-    """A segment run eagerly: compose_track_frame's `run` off the graphs."""
-    return fn(**inputs, **static)
-
-
 def compose_track_frame(run, cam: PinholeCamera, m: MapState, last_feats: FrameFeatures,
                         last_obs, last_R, last_t, vel_R, vel_t, has_vel: bool,
                         feats: FrameFeatures, ref_kf, inv_sigma2_table, th_depth: float,
@@ -613,22 +614,47 @@ def stereo_frame_features(imgL: torch.Tensor, imgR: torch.Tensor, config, fx: fl
     return stereo_features(fb, atlas, 0, 1, tuple(imgL.shape[-2:]), config, fx, bf)
 
 
+def batched_mono_features(imgs: torch.Tensor, orb, streams: tuple, cams: tuple) -> tuple:
+    """MultiTracker's monocular front end as a segment: ORB on all (B, H,
+    W) images in one batch, then the FrameFeatures (undistorted) of each
+    stream in `streams` with its camera in `cams`, as a tuple."""
+    from tpuslam_torch.ops.orb import ORBFeatures, extract_orb_batched
+
+    fb = extract_orb_batched(imgs, orb)
+    return tuple(mono_features(cam, ORBFeatures(*(leaf[b] for leaf in fb)))
+                 for b, cam in zip(streams, cams))
+
+
+def batched_stereo_features(imgs: torch.Tensor, orb, cams: tuple) -> tuple:
+    """MultiTracker's stereo front end as a segment: ORB on the 2B (H, W)
+    images (B left, then B right) in one batch, then each stream's stereo
+    matching over the batch's atlas with its camera in `cams`. Returns B
+    FrameFeatures."""
+    from tpuslam_torch.ops.orb import extract_orb_batched_atlas
+
+    B = len(cams)
+    fb, atlas = extract_orb_batched_atlas(imgs, orb)
+    return tuple(stereo_features(fb, atlas, b, B + b, tuple(imgs.shape[-2:]), orb, c.fx, c.bf)
+                 for b, c in enumerate(cams))
+
+
 # ---------------------------------------------------------------------------
 # Relocalization and LocalMapping.
 # ---------------------------------------------------------------------------
 
-def reloc_search_by_projection(cam: PinholeCamera, m: MapState, kf: int, R, t, cur: FrameFeatures,
+def reloc_search_by_projection(cam: PinholeCamera, m: MapState, kf, R, t, cur: FrameFeatures,
                                obs_pt, scale_factor: float = 1.2, n_levels: int = 8,
                                window: float = 10.0, max_desc_dist: int = 100):
     """Relocalization's projective widening (ORBmatcher::SearchByProjection,
-    the relocalization variant): project keyframe `kf`'s map points with the
-    current pose estimate and match them into still-free keypoints, skipping
-    points already found. Returns (obs_pt, n_added)."""
+    the relocalization variant): project keyframe `kf`'s map points (`kf` a
+    host int or a 1-element index tensor) with the current pose estimate
+    and match them into still-free keypoints, skipping points already
+    found. A segment with `kf` a tensor. Returns (obs_pt, n_added)."""
     P = m.capacity_pt
     dev = m.pt_xyz.device
-    obs_k = m.kf_obs_pt[kf]
+    obs_k = _row(m.kf_obs_pt, kf)
     pt_idx = obs_k.clamp(min=0).long()
-    has_k = (obs_k >= 0) & m.kf_kp_valid[kf] & m.pt_valid[pt_idx]
+    has_k = (obs_k >= 0) & _row(m.kf_kp_valid, kf) & m.pt_valid[pt_idx]
     # Points already assigned this frame (JAX writes False at slot 0 for
     # every unassigned keypoint, in order: the last write wins).
     already = scatter_last(torch.zeros(P, dtype=torch.bool, device=dev), obs_pt.clamp(min=0), obs_pt >= 0)
@@ -649,6 +675,83 @@ def reloc_search_by_projection(cam: PinholeCamera, m: MapState, kf: int, R, t, c
     old = obs_pt[idx]
     new_obs = scatter_last(obs_pt, idx, torch.where(ok & (old < 0), obs_k, old))
     return new_obs, (new_obs >= 0).sum() - (obs_pt >= 0).sum()
+
+
+# The map fields of relocalization's and localization mode's segments
+# (the copy-in moves these and no others).
+RELOC_MATCH_FIELDS = ("kf_obs_pt", "kf_kp_valid", "kf_kp_desc", "pt_valid")
+RELOC_SEARCH_FIELDS = ("kf_obs_pt", "kf_kp_valid", "pt_valid", "pt_xyz", "pt_desc", "pt_min_dist",
+                       "pt_max_dist")
+POSE_MAP_FIELDS = ("pt_xyz",)
+POLISH_MAP_FIELDS = ("kf_valid", "kf_obs_pt", "kf_kp_valid", "pt_valid", "pt_xyz", "pt_desc",
+                     "pt_normal", "pt_min_dist", "pt_max_dist")
+
+
+def reloc_match_segment(m: MapState, kf, feats: FrameFeatures):
+    """Relocalization's SearchByBoW step as a segment: the frame's
+    keypoints against keyframe kf's (a 1-element index tensor) map points,
+    distance 50, ratio 0.75. Returns (pt_idx (N,), -1 where unmatched; ok
+    (N,))."""
+    obs_k = _row(m.kf_obs_pt, kf)
+    has_k = (obs_k >= 0) & _row(m.kf_kp_valid, kf) & _take(m.pt_valid, obs_k)
+    idx, _, ok = match_nn_ratio(feats.desc, _row(m.kf_kp_desc, kf),
+                                feats.valid[:, None] & has_k[None, :], max_dist=50, nn_ratio=0.75)
+    return torch.where(ok, obs_k[idx], -1), ok
+
+
+def polish_segment(cam: PinholeCamera, m: MapState, ref_kf, feats: FrameFeatures, R, t, obs,
+                   inv_sigma2_table, *, scale_factor: float, n_levels: int, max_local_pts: int,
+                   cand_cap: int):
+    """TrackLocalMap from a pose and its assignment, as a segment (the
+    polish of relocalization and of localization mode): over the whole map,
+    or with 0 < max_local_pts < P over the covisibility-local subset seeded
+    by ref_kf (a 1-element index tensor) when nothing votes. Returns
+    track_local_map's (R, t, obs, n_inliers, visible, found)."""
+    local_kf_mask = None
+    if 0 < max_local_pts < m.capacity_pt:
+        local_kf_mask = local_keyframe_mask(m, obs, ref_kf=ref_kf)
+    return track_local_map(cam, m, R, t, feats, obs, inv_sigma2_table, scale_factor, n_levels,
+                           local_kf_mask=local_kf_mask, max_local_pts=max_local_pts, cand_cap=cand_cap)
+
+
+def vo_motion_segment(cam: PinholeCamera, m: MapState, last_feats: FrameFeatures, last_obs, vo_xyz,
+                      vo_valid, last_R, last_t, vel_R, vel_t, feats: FrameFeatures,
+                      inv_sigma2_table, *, th: float, scale_factor: float, n_levels: int):
+    """Localization mode's motion model at window factor `th`, as a
+    segment: the last frame's map points and, where it holds none, its
+    visual-odometry points (vo_xyz (N, 3) and vo_valid (N,), or None
+    before the first), tracked from the velocity's prediction. Returns
+    track_motion_model_pts's (R, t, cur_tag, cur_xyz, n_map, n_total,
+    n_matches)."""
+    has_map = (last_obs >= 0) & last_feats.valid & _take(m.pt_valid, last_obs)
+    xyz = _take(m.pt_xyz, last_obs)
+    tags = torch.where(has_map, last_obs, -1)
+    has = has_map
+    if vo_xyz is not None:
+        vo = vo_valid & ~has_map & last_feats.valid
+        xyz = torch.where(vo[:, None], vo_xyz, xyz)
+        has = has_map | vo
+    R_pred, t_pred = se3_compose(vel_R, vel_t, last_R, last_t)
+    return track_motion_model_pts(cam, last_feats, xyz, tags, has, R_pred, t_pred, feats,
+                                  inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels, th=th)
+
+
+def vo_points_segment(cam: PinholeCamera, feats: FrameFeatures, cur_tag, cur_xyz, R, t, *,
+                      th_depth: float):
+    """The next frame's visual-odometry points (Tracking::UpdateLastFrame),
+    as a segment: the keypoints with depth that track no map point, every
+    one closer than th_depth and the 100 nearest in any case, unprojected
+    into the world; a carried VO match (tag -1) keeps its position.
+    Returns (vo_xyz (N, 3), vo_valid (N,))."""
+    d = feats.depth
+    has_d = (d > 0) & feats.valid
+    order_d = torch.where(has_d, d, float("inf"))
+    # The rank of each depth, ties by index (jnp.argsort is stable).
+    rank = torch.argsort(torch.argsort(order_d, stable=True), stable=True)
+    create = has_d & (cur_tag < 0) & ((d < th_depth) | (rank < 100))
+    Xw = se3_apply(*se3_inverse(R, t), unproject(cam, feats.xy, d))
+    carried = cur_tag == -1
+    return torch.where(carried[:, None], cur_xyz, Xw), carried | create
 
 
 @functools.lru_cache(maxsize=None)

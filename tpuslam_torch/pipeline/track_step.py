@@ -12,10 +12,15 @@ times and the real tracker runs each frame (steps.fused_track_frame_image):
   5. pose optimization #2 over the union of matches.
 
 The JAX version vmaps stages 2 and 4 over streams; here every tensor keeps
-its leading stream dim B.
+its leading stream dim B. bench.py jits the step; here it is one segment
+(track_step_segment, no host read), run through `run`: eagerly by
+default, or StepGraphs.run (pipeline/graphs.py), which on a card replays
+one CUDA graph per input-shape key.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,27 +30,47 @@ from tpuslam_torch.matching.search import TH_HIGH, search_by_projection_points
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb_batched
 from tpuslam_torch.optim.pose import PoseObs, pose_optimization
 from tpuslam_torch.pipeline._index import gather_rows, scatter_last, sf_pow
+from tpuslam_torch.pipeline.graphs import call_segment
 from tpuslam_torch.pipeline.steps import predict_scale
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_sigma2(n_levels: int, sf: float, device: torch.device) -> torch.Tensor:
+    """1 / sigma^2 per octave on `device`, copied there once per setting
+    (a capture refuses a host->device copy)."""
+    return torch.tensor([1.0 / (sf**l) ** 2 for l in range(n_levels)], dtype=torch.float32,
+                        device=device)
 
 
 def track_step_batched(cam: PinholeCamera, cfg: ORBConfig, imgs,
                        last_xyz, last_desc, last_level, last_angle,
-                       map_xyz, map_desc, map_normal, map_min_d, map_max_d, R0, t0):
+                       map_xyz, map_desc, map_normal, map_min_d, map_max_d, R0, t0,
+                       run=call_segment):
     """One tracking step for B streams.
 
     imgs (B, H, W) float32 in [0, 255]; last_* (B, N, ...) the last frame's
     tracked points (world xyz, int32 descriptor words, octave, angle); map_*
     (B, L, ...) the local map (xyz, descriptors, viewing normal, distance
-    range); R0 (B, 3, 3), t0 (B, 3) the predicted pose T_cw.
+    range); R0 (B, 3, 3), t0 (B, 3) the predicted pose T_cw. `run` runs
+    the step's one segment (StepGraphs.run replays its graph).
     Returns (R2 (B, 3, 3), t2 (B, 3), n_inl2 (B,), n_valid) where n_valid is
-    the number of valid keypoints over all streams.
+    the number of valid keypoints over all streams, a device scalar.
     """
+    return run("batched", track_step_segment, dict(cam=cam, cfg=cfg), imgs=imgs,
+               last_xyz=last_xyz, last_desc=last_desc, last_level=last_level,
+               last_angle=last_angle, map_xyz=map_xyz, map_desc=map_desc, map_normal=map_normal,
+               map_min_d=map_min_d, map_max_d=map_max_d, R0=R0, t0=t0,
+               inv_sigma2=_inv_sigma2(cfg.n_levels, cfg.scale_factor, imgs.device))
+
+
+def track_step_segment(imgs, last_xyz, last_desc, last_level, last_angle, map_xyz, map_desc,
+                       map_normal, map_min_d, map_max_d, R0, t0, inv_sigma2, *,
+                       cam: PinholeCamera, cfg: ORBConfig):
+    """track_step_batched's body: tensors in, new tensors out, no host read
+    (inv_sigma2 (n_levels,) the octaves' 1 / sigma^2)."""
     n_levels, sf = cfg.n_levels, cfg.scale_factor
     B = imgs.shape[0]
     dev = imgs.device
-    inv_sigma2 = torch.tensor(
-        [1.0 / (sf**l) ** 2 for l in range(n_levels)], dtype=torch.float32, device=dev
-    )
     feats = extract_orb_batched(imgs, cfg)
     Nk = feats.xy.shape[1]
     N = last_xyz.shape[1]

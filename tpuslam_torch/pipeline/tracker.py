@@ -30,9 +30,11 @@ before it returns, and what it made is marked with the reading stream
 (`record_stream`) when it is adopted.
 
 The device is the tracker's (`device`, "cuda" unless the caller asks for
-the CPU). The steady-state frame step and the depth sensors' front ends go
-through `StepGraphs` (pipeline/graphs.py): on a card each segment is a
-captured CUDA graph, replayed every frame; on the CPU the segments run on
+the CPU). The steady-state frame step, the depth sensors' front ends,
+relocalization (all but the BoW query, the brute-force match and EPnP's
+cuSOLVER calls) and localization mode's visual odometry go through
+`StepGraphs` (pipeline/graphs.py): on a card each segment is a captured
+CUDA graph, replayed at each later call; on the CPU the segments run on
 the same static buffers. A steady-state frame makes one packed
 device->host fetch beyond the step's own verdict read; keyframe slots are
 assigned on the host, so insertion never reads the device watermark.
@@ -572,16 +574,25 @@ class Tracker:
 
     def _track_local_map(self, m: MapState, R, t, feats, obs):
         """TrackLocalMap over the whole map, or over the covisibility-local
-        subset on a large map."""
+        subset on a large map: steps.polish_segment through the graphs."""
         cfg = self.cfg
-        cap = self._local_subset_cap()
-        kwargs = {}
-        if cap:
-            kwargs = dict(local_kf_mask=steps.local_keyframe_mask(
-                m, obs, ref_kf=max(self._last_kf_idx, 0)), max_local_pts=cap)
-        return steps.track_local_map(
-            cfg.cam, m, R, t, feats, obs, self.inv_sigma2, scale_factor=cfg.orb.scale_factor,
-            n_levels=cfg.orb.n_levels, cand_cap=self._cand_cap(), **kwargs)
+        return self.graphs.run(
+            "polish", steps.polish_segment,
+            dict(cam=cfg.cam, scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
+                 max_local_pts=self._local_subset_cap(), cand_cap=self._cand_cap()),
+            m=steps.map_fields(m, steps.POLISH_MAP_FIELDS), ref_kf=self._index(self._last_kf_idx),
+            feats=feats, R=R, t=t, obs=obs, inv_sigma2_table=self.inv_sigma2)
+
+    def _index(self, i: int) -> torch.Tensor:
+        """A keyframe slot as a 1-element index tensor (a segment's input;
+        a negative slot is 0)."""
+        return torch.full((1,), max(int(i), 0), dtype=torch.int64, device=self.device)
+
+    def _optimize_pose(self, feats, obs, R, t):
+        """steps.optimize_frame_pose through the graphs: (R, t, obs, n_inl)."""
+        return self.graphs.run("pose", steps.optimize_frame_pose, dict(cam=self.cfg.cam),
+                               m=steps.map_fields(self.map, steps.POSE_MAP_FIELDS), cur=feats,
+                               obs_pt=obs, R0=R, t0=t, inv_sigma2_table=self.inv_sigma2)
 
     def _predict_pose(self):
         if self._velocity is not None:
@@ -993,13 +1004,11 @@ class Tracker:
 
     def _match_frame_to_kf_points(self, feats: FrameFeatures, kf: int):
         """Match the frame's keypoints against keyframe kf's map points (the
-        SearchByBoW step of Relocalization). Returns (pt_idx (N,), ok (N,))."""
-        m = self.map
-        obs_k = m.kf_obs_pt[kf]
-        has_k = (obs_k >= 0) & m.kf_kp_valid[kf] & m.pt_valid[obs_k.clamp(min=0).long()]
-        idx, _, ok = match_nn_ratio(feats.desc, m.kf_kp_desc[kf],
-                                    feats.valid[:, None] & has_k[None, :], max_dist=50, nn_ratio=0.75)
-        return torch.where(ok, obs_k[idx], -1), ok
+        SearchByBoW step of Relocalization; steps.reloc_match_segment
+        through the graphs). Returns (pt_idx (N,), ok (N,))."""
+        return self.graphs.run(
+            "reloc_match", steps.reloc_match_segment, {},
+            m=steps.map_fields(self.map, steps.RELOC_MATCH_FIELDS), kf=self._index(kf), feats=feats)
 
     def _reloc_candidate_kfs(self, feats: FrameFeatures) -> Optional[list]:
         """BoW relocalization candidates (KeyFrameDatabase::
@@ -1029,7 +1038,14 @@ class Tracker:
         optimization -> up to two rounds of projective widening to reach 50
         inliers -> the local-map polish. Brute-force matching over every map
         point when no candidate yields 15 matches (or there is no database),
-        accepted at the configured minimum."""
+        accepted at the configured minimum.
+
+        Each step but the candidates' BoW query and the brute-force match
+        (shapes that follow the map; not jitted in the JAX package either)
+        runs through the tracker's graphs; EPnP's cuSOLVER calls run eagerly
+        between its segments (sfm/pnp.py). The RANSAC picks are drawn
+        before, outside any graph. The reads are the eager form's: the
+        match counts, the RANSAC verdict, the inlier and added counts."""
         m = self.map
         cfg = self.cfg
         n = feats.xy.shape[0]
@@ -1052,16 +1068,17 @@ class Tracker:
             attempts.append((pt_idx, pt_idx >= 0, -1))
 
         best = None  # (n_good, R, t, obs)
+        K = steps._intrinsics(cfg.cam, self.device)[0]
         for pt_idx, ok, kf in attempts:
             valid = ok & (pt_idx >= 0)
-            r = pnp_ransac(cfg.cam.K, m.pt_xyz[pt_idx.clamp(min=0).long()], feats.xy,
+            r = pnp_ransac(K, m.pt_xyz[pt_idx.clamp(min=0).long()], feats.xy,
                            torch.ones(n, device=self.device), valid,
-                           picks=self._draw_picks(128, 4, valid), min_inliers=15)
+                           picks=self._draw_picks(128, 4, valid), min_inliers=15,
+                           run=self.graphs.run)
             if not bool(r.success):
                 continue
             obs = torch.where(valid & r.inliers, pt_idx, -1)
-            R, t, obs, n_inl = steps.optimize_frame_pose(cfg.cam, m, feats, obs, r.R, r.t,
-                                                         self.inv_sigma2)
+            R, t, obs, n_inl = self._optimize_pose(feats, obs, r.R, r.t)
             n_good = int(n_inl)
             if n_good < 10:
                 continue
@@ -1094,14 +1111,16 @@ class Tracker:
         30 to 50 inliers a narrow one (3 px, 64). Returns (R, t, obs,
         n_good)."""
         cfg = self.cfg
-        m = self.map
+        m = steps.map_fields(self.map, steps.RELOC_SEARCH_FIELDS)
         for window, max_desc in ((10.0, 100), (3.0, 64)):
-            obs, n_add = steps.reloc_search_by_projection(
-                cfg.cam, m, kf, R, t, feats, obs, scale_factor=cfg.orb.scale_factor,
-                n_levels=cfg.orb.n_levels, window=window, max_desc_dist=max_desc)
+            obs, n_add = self.graphs.run(
+                "reloc_search", steps.reloc_search_by_projection,
+                dict(cam=cfg.cam, scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
+                     window=window, max_desc_dist=max_desc),
+                m=m, kf=self._index(kf), R=R, t=t, cur=feats, obs_pt=obs)
             if n_good + int(n_add) < 50:
                 break
-            R, t, obs, n_inl = steps.optimize_frame_pose(cfg.cam, m, feats, obs, R, t, self.inv_sigma2)
+            R, t, obs, n_inl = self._optimize_pose(feats, obs, R, t)
             n_good = int(n_inl)
             if not 30 < n_good < 50:
                 break
@@ -1115,26 +1134,26 @@ class Tracker:
         tracks the last frame's map points and, where it holds none, the VO
         points made from its close depths; while the last frame tracked
         mostly VO points (mbVO) relocalization also runs, and wins when it
-        succeeds. TrackLocalMap runs only outside mbVO."""
+        succeeds. TrackLocalMap runs only outside mbVO. The motion model at
+        th=7 and th=14, the reference keyframe, the TrackLocalMap polish and
+        the next VO points are segments through the tracker's graphs; the
+        reads are the eager form's (the counts after each window, the
+        reference keyframe's, the polish's inliers)."""
         cfg = self.cfg
         m = self.map
         last = self._last_feats
-        tag0 = self._last_obs
-        has_map = (tag0 >= 0) & last.valid & m.pt_valid[tag0.clamp(min=0).long()]
-        xyz = m.pt_xyz[tag0.clamp(min=0).long()]
-        tags = torch.where(has_map, tag0, -1)
-        has = has_map
-        if self._vo_xyz is not None:
-            vo = self._vo_valid & ~has_map & last.valid
-            xyz = torch.where(vo[:, None], self._vo_xyz, xyz)
-            has = has_map | vo
 
         def run_motion_model():
-            R_pred, t_pred = self._predict_pose()
+            vel_R, vel_t = self._velocity
             for th in (7.0, 14.0):
-                R, t, ct, cx, n_map, n_tot, n_m = steps.track_motion_model_pts(
-                    cfg.cam, last, xyz, tags, has, R_pred, t_pred, feats, self.inv_sigma2,
-                    scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels, th=th)
+                R, t, ct, cx, n_map, n_tot, n_m = self.graphs.run(
+                    "vo_mm", steps.vo_motion_segment,
+                    dict(cam=cfg.cam, th=th, scale_factor=cfg.orb.scale_factor,
+                         n_levels=cfg.orb.n_levels),
+                    m=steps.map_fields(m, steps.MM_MAP_FIELDS), last_feats=last,
+                    last_obs=self._last_obs, vo_xyz=self._vo_xyz, vo_valid=self._vo_valid,
+                    last_R=self._last_R, last_t=self._last_t, vel_R=vel_R, vel_t=vel_t, feats=feats,
+                    inv_sigma2_table=self.inv_sigma2)
                 n_m, n_tot, n_map = self._fetch(n_m, n_tot, n_map)
                 # >= 20 matches before the optimization, > 20 map + VO inliers.
                 if n_m >= 20 and n_tot > 20:
@@ -1146,9 +1165,11 @@ class Tracker:
         if not self._vo_mode:
             mm = run_motion_model() if self._velocity is not None else None
             if mm is None and self._last_kf_idx >= 0:
-                R, t, obs, n_matches, n_inl = steps.track_reference_keyframe(
-                    cfg.cam, m, self._last_kf_idx, feats, self._last_R, self._last_t,
-                    self.inv_sigma2)
+                R, t, obs, n_matches, n_inl, _ = self.graphs.run(
+                    "ref", steps.ref_segment, dict(cam=cfg.cam),
+                    m=steps.map_fields(m, steps.REF_MAP_FIELDS), ref_kf=self._index(self._last_kf_idx),
+                    feats=feats, last_R=self._last_R, last_t=self._last_t,
+                    inv_sigma2_table=self.inv_sigma2)
                 n_matches, n_inl = self._fetch(n_matches, n_inl)
                 if n_matches >= 15 and n_inl >= 10:
                     ct = torch.where(obs >= 0, obs, -2)
@@ -1190,24 +1211,10 @@ class Tracker:
             self._last_obs = torch.where(cur_tag >= 0, cur_tag, -1).to(torch.int32)
             self._record_pose(frame_id, R, t)
         self._frames_since_kf += 1
-        self._update_vo_points(feats, cur_tag, cur_xyz, R, t)
+        self._vo_xyz, self._vo_valid = self.graphs.run(
+            "vo_points", steps.vo_points_segment, dict(cam=cfg.cam, th_depth=float(self._th_depth)),
+            feats=feats, cur_tag=cur_tag, cur_xyz=cur_xyz, R=R, t=t)
         return True
-
-    def _update_vo_points(self, feats: FrameFeatures, cur_tag, cur_xyz, R, t):
-        """The next frame's VO points (Tracking::UpdateLastFrame): the
-        keypoints with depth that track no map point, every one closer than
-        th_depth and the 100 nearest in any case, unprojected into the world;
-        a carried VO match (tag -1) keeps its position."""
-        d = feats.depth
-        has_d = (d > 0) & feats.valid
-        order_d = torch.where(has_d, d, float("inf"))
-        # The rank of each depth, ties by index (jnp.argsort is stable).
-        rank = torch.argsort(torch.argsort(order_d, stable=True), stable=True)
-        create = has_d & (cur_tag < 0) & ((d < self._th_depth) | (rank < 100))
-        Xw = se3_apply(*se3_inverse(R, t), unproject(self.cfg.cam, feats.xy, d))
-        carried = cur_tag == -1
-        self._vo_xyz = torch.where(carried[:, None], cur_xyz, Xw)
-        self._vo_valid = carried | create
 
     # ------------------------------------------------- stereo / RGB-D input
 

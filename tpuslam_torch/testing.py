@@ -30,6 +30,7 @@ import torch
 
 from tpuslam_torch.geometry.camera import PinholeCamera, project, unproject
 from tpuslam_torch.geometry.se3 import se3_apply, se3_inverse, so3_exp
+from tpuslam_torch.geometry.sim3 import sim3_compose
 from tpuslam_torch.mapstate.core import (
     FrameFeatures,
     MapState,
@@ -42,6 +43,7 @@ from tpuslam_torch.mapstate.core import (
 from tpuslam_torch.ops.image import gaussian_blur
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb, extract_orb_batched
 from tpuslam_torch.optim.ba import BAProblem
+from tpuslam_torch.optim.pose_graph import Sim3Edges, make_relative
 from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, fused_track_frame_image
 from tpuslam_torch.pipeline.tracker import pad_feats
 
@@ -736,3 +738,49 @@ def map_from_ba_problem(cam, prob: BAProblem, max_kf: int, n_kp: int, max_pt: in
         pt_xyz=put(m.pt_xyz, prob.X, P), pt_valid=put(m.pt_valid, True, P),
         pt_max_dist=put(m.pt_max_dist, 100.0, P),
         n_kf=torch.tensor(K, dtype=torch.int32, device=dev), n_pt=torch.tensor(P, dtype=torch.int32, device=dev))
+
+
+def compose_sim3_chain(rels):
+    """Absolute poses from relative steps: S_kw = rel_{k-1} * S_{k-1,w}."""
+    s, R, t = [torch.tensor(1.0)], [torch.eye(3)], [torch.zeros(3)]
+    for sr, Rr, tr in rels:
+        sn, Rn, tn = sim3_compose(sr, Rr, tr, s[-1], R[-1], t[-1])
+        s.append(sn)
+        R.append(Rn)
+        t.append(tn)
+    return torch.stack(s), torch.stack(R), torch.stack(t)
+
+
+def sim3_edges(ei, ej, rel):
+    """Sim3Edges from index lists and (s, R, t) measurements, all valid,
+    weight 1."""
+    ms, mR, mt = (torch.stack(x) for x in zip(*rel))
+    n = len(ei)
+    return Sim3Edges(i=torch.tensor(ei, dtype=torch.int32), j=torch.tensor(ej, dtype=torch.int32),
+                     meas_s=ms, meas_R=mR, meas_t=mt, valid=torch.ones(n, dtype=torch.bool),
+                     weight=torch.ones(n))
+
+
+def drifted_loop(K, loop_pairs=((None, 0),), bias=(0.002, 0.005, -0.002), step=(0.51, 0.005, -0.005)):
+    """A Sim3 pose graph on the CPU (tests/test_torch_pose_graph.py's and
+    test_torch_graph_paths.py's), as (s0, R0, t0, Sim3Edges).
+
+    A loop of K nodes: drifted odometry edges consistent with the initial
+    poses plus loop edges with the true relative poses."""
+    w = np.array([0.0, 2 * np.pi / (K - 1), 0.0], np.float32)
+    rel_gt = [(torch.tensor(1.0), so3_exp(torch.from_numpy(w)), torch.tensor([0.5, 0.0, 0.0]))] * (K - 1)
+    wn = (w + np.array(bias, np.float32)).astype(np.float32)
+    rel_n = [(torch.tensor(1.0), so3_exp(torch.from_numpy(wn)), torch.tensor(step, dtype=torch.float32))] * (K - 1)
+    s_gt, R_gt, t_gt = compose_sim3_chain(rel_gt)
+    s0, R0, t0 = compose_sim3_chain(rel_n)
+    ei, ej, rel = [], [], []
+    for k in range(K - 1):
+        ei.append(k)
+        ej.append(k + 1)
+        rel.append(make_relative(s0[k], R0[k], t0[k], s0[k + 1], R0[k + 1], t0[k + 1]))
+    for a, b in loop_pairs:
+        a = K - 1 if a is None else a
+        ei.append(a)
+        ej.append(b)
+        rel.append(make_relative(s_gt[a], R_gt[a], t_gt[a], s_gt[b], R_gt[b], t_gt[b]))
+    return s0, R0, t0, sim3_edges(ei, ej, rel)
