@@ -42,7 +42,15 @@ Phases, any failure exits non-zero:
      graph pool's and the static buffers' bytes, and the device ms of the
      copy-in of a replaced map. Every session phase below runs through the
      tracker's graphs (the card's path) and prints its graph_replays and
-     graph_captures; each fails unless every steady-state frame replayed;
+     graph_captures; each fails unless every steady-state frame replayed.
+     Each also prints its map_graph_replays and map_graph_captures (the
+     keyframe jobs through tracker.map_graphs: mapping_front's six
+     segments, the local-BA chunks, the normals, compaction), their
+     captures' ms and kernel nodes, the pool's and buffers' bytes, and the
+     keyframe frame by stage over the jobs that captured nothing; each fails
+     unless every keyframe job replayed every segment (a capture replays at
+     once), with at most 9 mapping captures (the mapping process: the
+     worker's counts);
   5. times: CUDA-event medians of 20 runs after warm-up, in turns, for the
      kernels against their plain versions (and gather_patches against one
      aten::index call) at B=4 and B=1, per call and as the device's time
@@ -98,6 +106,22 @@ Phases, any failure exits non-zero:
      distortion: the renderer is a pinhole) over 60 frames of a StepWallScene
      at half depth, so keypoints lie on both sides of th_depth (3.09 m):
      the same gates and prints;
+  mapping graphs (after RGB-D SLAM): Tracker._mapping_compute both ways
+     from the same state (tracker.map_graphs replayed against
+     map_graphs.run = steps.call_segment), 3 runs each in turns, on
+     trackers of each session's config with loop closing off (the loop
+     stage is eager both ways): the mono session's keyframe jobs 2, 45 and
+     85 (kept on the host), job 85 again with its watermark forced to
+     capacity (point compaction, graphed), and job 1 of the stereo and the
+     RGB-D session. Every MapState
+     field and the point remap torch.equal, no more device->host reads
+     graphed than eager, at most 9 mapping captures a tracker, or the run
+     fails. Prints per job: wall ms both ways and by stage (stage syncs on),
+     reads, bytes copied into the static buffers, the first run's
+     captures; for job 85 and the stereo job host API calls, peak memory
+     and each stage alone under the profiler (device ms, wall ms, launches)
+     both ways; per tracker the pool's and buffers' bytes and the device ms
+     of a whole map's copy-in;
   MultiTracker: track_stereo over 2 KITTI-sized streams for 12 frames, one
      FAST+NMS launch per batched extraction of the 4 images (the batched
      front end one CUDA graph), every frame of every stream tracked within
@@ -291,6 +315,14 @@ MONO_FRAMES, MONO_INIT_BY, MONO_TRACKED = 100, 10, 0.95
 # is 3%.
 MONO_ATE_SHARE = 0.03
 MONO_SNAP_JOB, MONO_RELOC_FRAME = 10, 50
+# Phase mapping graphs: the mono session's keyframe jobs kept on the host
+# (an early, a middle and a late one; the late one is run again at the
+# compaction trigger) and a stereo session's, each run both ways
+# MAP_GRAPH_REPS times in turns; a tracker's mapping segments (keys): the
+# six of mapping_front, the local BA, the normals and compaction.
+MAP_GRAPH_MONO_JOBS, MAP_GRAPH_DEPTH_JOB = (2, 45, 85), 1
+MAP_GRAPH_REPS, MAP_GRAPH_KEYS = 3, 9
+MAP_STAGES = ("map.compact", "map.front", "map.local_ba1", "map.local_ba2", "map.normals")
 # Stereo SLAM at KITTI00-02.yaml's operating point (Examples/Stereo of the
 # reference): its camera and ORBextractor block (2000 features; scale 1.2,
 # 8 levels, FAST 20/7 are ORBConfig's defaults), ThDepth 35, and 10 frames
@@ -872,7 +904,10 @@ def _dev_time(e):
 
 def profile_call(fn):
     """One call of fn under torch.profiler: (wall ms, kernel launches,
-    device us summed over the profiler's events, its 8 largest events)."""
+    device us summed over the device's own events (kernels, copies,
+    fills: a host op's entry carries its kernels' time too, which would
+    count them twice), its 8 largest such events)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -882,7 +917,8 @@ def profile_call(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
     launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    return wall_ms, launches, sum(_dev_time(e) for e in ev), sorted(ev, key=_dev_time, reverse=True)[:8]
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    return wall_ms, launches, sum(_dev_time(e) for e in dev), sorted(dev, key=_dev_time, reverse=True)[:8]
 
 
 def log_top(top):
@@ -1127,6 +1163,71 @@ def graph_report(name: str, tr) -> list:
     return []
 
 
+def watch_map_jobs(tr) -> list:
+    """Wrap the tracker's keyframe job so that each one appends to the
+    returned list whether it captured a mapping graph and whether all its
+    segments replayed (map_graph_replays rose; a captured graph replays at
+    once, so a capturing job replays too)."""
+    recs = []
+    orig = tr._mapping_compute
+
+    def wrapped(m, ki):
+        c, r = tr.map_graphs.captures, tr.stats["map_graph_replays"]
+        out = orig(m, ki)
+        recs.append(dict(captured=tr.map_graphs.captures > c, replayed=tr.stats["map_graph_replays"] > r))
+        return out
+
+    tr._mapping_compute = wrapped
+    return recs
+
+
+def keep_jobs_on_host(tr, jobs) -> dict:
+    """Wrap the tracker's keyframe job so that the inputs of the jobs with
+    these indices (from 0) are kept as {index: (numpy map, slot)}: on the
+    host, so the session's peak card memory does not count them."""
+    kept, calls = {}, [0]
+    orig = tr._mapping_compute
+
+    def wrapped(m, ki):
+        if calls[0] in jobs:
+            kept[calls[0]] = (map_to_numpy(m), ki)
+        calls[0] += 1
+        return orig(m, ki)
+
+    tr._mapping_compute = wrapped
+    return kept
+
+
+def map_graph_report(name: str, tr, recs: list) -> list:
+    """Print a session's mapping-graph counts (keyframe jobs replayed from
+    the tracker's map_graphs, its captures with their ms and kernel nodes,
+    the pool's and the static buffers' bytes); the failures: a job that did
+    not replay every segment, or more captures than the mapping has
+    segments."""
+    g, st = tr.map_graphs, tr.stats
+    log(f"  {name} mapping graphs: map_graph_replays {st['map_graph_replays']} of {st['map_jobs']} keyframe "
+        f"jobs ({sum(r['captured'] for r in recs)} of the session's {len(recs)} captured), "
+        f"map_graph_captures {st['map_graph_captures']} ({captures_report(g)}); graph pool "
+        f"{g.pool_bytes() / 2**20:.1f} MiB, static buffers {g.buffer_bytes() / 2**20:.1f} MiB, copied in "
+        f"{g.copied_bytes / max(st['map_jobs'], 1) / 2**20:.1f} MiB a job")
+    bad = []
+    missed = [j for j, r in enumerate(recs) if not r["replayed"]]
+    if not recs or missed:
+        bad.append(f"{name}: keyframe jobs {missed} of {len(recs)} did not replay every segment")
+    if st["map_graph_captures"] > MAP_GRAPH_KEYS:
+        bad.append(f"{name}: {st['map_graph_captures']} mapping captures")
+    return bad
+
+
+def steady_keyframe_line(kf_ms: list, stages: dict, recs: list) -> str:
+    """The keyframe frames whose job captured nothing (the steady state):
+    the frame and each stage (lists aligned with the jobs), medians."""
+    keep = [j for j, r in enumerate(recs) if not r["captured"]]
+    parts = ", ".join(f"{k} {_ms([v[j] for j in keep if j < len(v)])}" for k, v in stages.items())
+    return (f"  keyframe frame after the mapping captures ({len(keep)} of {len(recs)} jobs replayed every "
+            f"segment): {_ms([kf_ms[j] for j in keep])}; of which {parts}")
+
+
 def watch_loop_stage(tr) -> list:
     """Wrap the tracker's loop-closing hand-off so each keyframe's
     device->host reads in it (count_syncs) append to the returned list."""
@@ -1177,6 +1278,8 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     tr = system.tracker
     tr.stage_sync = True  # the stage timers hold device time
     kept = keep_mapping_inputs(tr, jobs={MONO_SNAP_JOB})
+    host_jobs = keep_jobs_on_host(tr, set(MAP_GRAPH_MONO_JOBS))
+    map_recs = watch_map_jobs(tr)
     loop_reads = watch_loop_stage(tr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1236,6 +1339,12 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     log(f"  keyframe frame: {_ms([ms[i] for i in kf_idx])}; of which mapping_front {_ms(front)}, "
         f"local BA chunk 1 {_ms(ba1)}, chunk 2 {_ms(ba2)}, loop closing {_ms(loop)}, the rest "
         f"(tracking step, insertion, normals) {_ms(rest)}")
+    session_recs = map_recs[:len(kf_idx)]
+    log(steady_keyframe_line([ms[i] for i in kf_idx], {
+        "mapping_front": front, "local BA chunk 1": ba1, "chunk 2": ba2, "loop closing": loop,
+        "the rest": rest, "normals": [v * 1e3 for v in st.get("map.normals", [])]}, session_recs))
+    log(f"  captures: tracking {_ms([v * 1e3 for v in st.get('track.capture', [])])}, mapping "
+        f"{_ms([v * 1e3 for v in st.get('map.capture', [])])} (inside the frames and stages above)")
     log(f"  initialization: two-view {_ms([v * 1e3 for v in st.get('init.two_view', [])])}, "
         f"global BA (20 LM iterations over {m.capacity_kf * m.kf_obs_pt.shape[1]} edge slots) "
         f"{_ms([v * 1e3 for v in st.get('init.global_ba', [])])}")
@@ -1255,6 +1364,7 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
         bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
     bad += loop_stage_report("mono", tr, loop_reads, smi)
     bad += graph_report("mono", tr)
+    bad += map_graph_report("mono", tr, session_recs)
     if bad:
         raise AssertionError(f"mono SLAM: {bad}")
     del tr._close_loops  # the instance's own method again
@@ -1399,7 +1509,7 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     by_kind = {k: [ms[i] for i, x in enumerate(kinds) if x["kind"] == k]
                for k in ("motion model", "reference keyframe", "keyframe")}
     return launches, dict(path=path, save_ms=save_ms, traj=tr.export_trajectory(), poses=poses,
-                          align=(s, Ra, ta), ms_by_kind=by_kind, wall=session_s)
+                          align=(s, Ra, ta), ms_by_kind=by_kind, wall=session_s, map_jobs=host_jobs)
 
 
 def phase_stereo_kernels(scene: StepWallScene, smi: str) -> dict:
@@ -1517,13 +1627,15 @@ def depth_gates(name: str, traj, poses, n_frames: int) -> tuple:
     return [f"{name}: {b}" for b in bad], summary
 
 
-def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_fn) -> dict:
+def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_fn,
+                keep_job: int | None = None) -> dict:
     """A stereo or RGB-D session through the port's System on the card (see
     the module docstring): its gates, ms per frame by kind, the front end
     alone, device->host reads by frame kind, peak memory. `frames` holds
     DEPTH_FRAMES session frames and 3 more for the read counts; front_fn(f)
     runs the front end alone on frame f. Returns (launches in the session,
-    their medians per frame)."""
+    their medians per frame, and keyframe job `keep_job`'s input (numpy
+    map, slot) when asked)."""
     tr = system.tracker
     tr.stage_sync = True  # the stage timers hold device time
     feat_stage = f"track.{name}_features"
@@ -1532,6 +1644,8 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
     fast_nms.launches = 0
     gather_patches.launches = 0
     rec = []
+    host_jobs = keep_jobs_on_host(tr, {keep_job})
+    map_recs = watch_map_jobs(tr)
     loop_reads = watch_loop_stage(tr) if tr.loop_closer is not None else None
     t0 = time.perf_counter()
     res = depth_session(system, frames[:DEPTH_FRAMES], on_frame=session_recorder(tr, rec))
@@ -1566,6 +1680,13 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
         f"{_ms([feat[i] for i in kf_idx])}, mapping_front {_ms(front)}, local BA chunk 1 {_ms(ba1)}, "
         f"chunk 2 {_ms(ba2)}, loop closing {_ms(loop)}, the rest (tracking step, insertion, "
         f"densification, normals) {_ms(rest)}")
+    session_recs = map_recs[:len(kf_idx)]
+    log(steady_keyframe_line([ms[i] for i in kf_idx], {
+        f"the {name} front end": [feat[i] for i in kf_idx], "mapping_front": front, "local BA chunk 1": ba1,
+        "chunk 2": ba2, "loop closing": loop, "the rest": rest,
+        "normals": [v * 1e3 for v in st.get("map.normals", [])]}, session_recs))
+    log(f"  captures: tracking {_ms([v * 1e3 for v in st.get('track.capture', [])])}, mapping "
+        f"{_ms([v * 1e3 for v in st.get('map.capture', [])])} (inside the frames and stages above)")
     if loop_reads is not None:
         bad += loop_stage_report(name, tr, loop_reads, smi)
         del tr._close_loops
@@ -1576,6 +1697,7 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
     if any(x["launches"][k] < 1 for x in kinds for k in launches):
         bad.append(f"{name}: a frame without both kernels: {[x['launches'] for x in kinds]}")
     bad += graph_report(name, tr)
+    bad += map_graph_report(name, tr, session_recs)
     if bad:
         raise AssertionError(f"{name} SLAM: {bad}")
 
@@ -1609,7 +1731,7 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
         log(f"  device->host reads of a {kind} frame through the Tracker: {len(sites)}, at {sites}; "
             f"peak memory {gib:.3f} GiB")
     per_frame = {k: statistics.median(x["launches"][k] for x in kinds) for k in launches}
-    return dict(launches=launches, per_frame=per_frame)
+    return dict(launches=launches, per_frame=per_frame, map_job=host_jobs.get(keep_job))
 
 
 def phase_localization(name: str, system: System, frames: list, poses, smi: str) -> dict:
@@ -1781,7 +1903,7 @@ def phase_stereo(scene: StepWallScene, smi: str) -> dict:
     def front(f):
         return steps.stereo_frame_features(f[0], f[1], cfg, cam.fx, cam.bf)
 
-    out = phase_depth("stereo", system, frames, poses, smi, front)
+    out = phase_depth("stereo", system, frames, poses, smi, front, keep_job=MAP_GRAPH_DEPTH_JOB)
     L, R = frames[DEPTH_FRAMES // 2]
     g = front((L, R))
     t0 = time.perf_counter()
@@ -1827,7 +1949,136 @@ def phase_rgbd(smi: str) -> dict:
         f"closer than th_depth {tr._th_depth:.3f} m, {int((has & ~close).sum())} farther")
     if not (int(close.sum()) > 50 and int((has & ~close).sum()) > 50):
         raise AssertionError("RGB-D SLAM: the scene does not put keypoints on both sides of th_depth")
-    return phase_depth("rgbd", system, frames, poses, smi, front)
+    return phase_depth("rgbd", system, frames, poses, smi, front, keep_job=MAP_GRAPH_DEPTH_JOB)
+
+
+def _stage_device_ms(tr, m, ki) -> dict:
+    """Each stage of one keyframe job (compaction when the map is at its
+    trigger, mapping_front, both local-BA chunks, the normals) alone under
+    the profiler, as the tracker runs it: {stage: (device ms, wall ms,
+    kernel launches, its 8 largest device events)}."""
+    out, res = {}, [m]
+    stages = []
+    if int(m.n_pt) >= int(0.95 * m.capacity_pt):
+        stages.append(("map.compact", tr._compact))
+    stages += [("map.front", lambda mm: tr._mapping_front(mm, ki)),
+               ("map.local_ba1", lambda mm: tr._local_ba(mm, ki, iters=4)),
+               ("map.local_ba2", lambda mm: tr._local_ba(mm, ki, iters=4)),
+               ("map.normals", tr._normals)]
+    for name, fn in stages:
+        wall, n, dev_us, top = profile_call(lambda fn=fn: res.append(fn(res[-1])))
+        out[name] = (dev_us / 1e3, wall, n, top)
+    return out
+
+
+def phase_mapping_graphs(smi: str, mono: dict, stereo: dict, rgbd: dict, device: str = "cuda") -> None:
+    """Keyframe jobs (Tracker._mapping_compute) both ways from the same
+    state (see the module docstring): the mono session's early, middle and
+    late jobs, the late one again at the compaction trigger, a stereo and
+    an RGB-D job, each on a tracker of its session's config with loop
+    closing off (the loop stage is eager both ways)."""
+    trackers = {
+        "mono": System(CAM, orb=CFG, device=device, enable_loop_closing=False).tracker,
+        "stereo": System(KITTI_CAM, SensorType.STEREO, orb=KITTI_ORB, device=device, **MULTI_TRACKER).tracker,
+        "rgbd": System(TUM_CAM, SensorType.RGBD, orb=TUM_ORB, device=device, **RGBD_TRACKER).tracker,
+    }
+    trackers["stereo"]._depth_mode = trackers["rgbd"]._depth_mode = True
+    late = MAP_GRAPH_MONO_JOBS[-1]
+    # (name, sensor, numpy map, slot, profiled: host API calls, peak
+    # memory and each stage alone under the profiler)
+    cases = [(f"mono job {j}", "mono", *mono["map_jobs"][j], j == late) for j in MAP_GRAPH_MONO_JOBS]
+    m_np, ki = mono["map_jobs"][late]
+    cases.append((f"mono job {late} at the compaction trigger (its watermark at capacity)", "mono",
+                  m_np._replace(n_pt=np.asarray(MAP["P"], dtype=np.int32)), ki, False))
+    cases += [(f"{name} job {MAP_GRAPH_DEPTH_JOB}", name, *d["map_job"], name == "stereo")
+              for name, d in (("stereo", stereo), ("rgbd", rgbd))]
+    log(f"mapping graphs on {smi}: keyframe jobs graphed (tracker.map_graphs) against eager "
+        f"(map_graphs.run = steps.call_segment), {MAP_GRAPH_REPS} runs each in turns from the same state; "
+        f"wall ms with the stage syncs on (each stage's time its device's), loop closing off")
+    bad = []
+    for name, sensor, m_np, ki, profiled in cases:
+        tr = trackers[sensor]
+        g = tr.map_graphs
+        m = map_to_torch(m_np, device)
+        state = tracker_state(tr)
+
+        def once(way, fn, stage_sync=False):
+            tracker_restore(tr, state)
+            tr.stage_sync = stage_sync  # each stage's time its device's
+            with eager_segments(g) if way == "eager" else contextlib.nullcontext():
+                return fn()
+
+        def job():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr._mapping_compute(m, ki)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        n_cap = len(g.captured)
+        (_, first_ms) = once("graphed", job, True)
+        runs = {"eager": [], "graphed": []}
+        for r in range(MAP_GRAPH_REPS):
+            for way in (("eager", "graphed") if r % 2 == 0 else ("graphed", "eager")):
+                smp = tr.metrics.timer.samples
+                c0, n0 = g.copied_bytes, {k: len(smp.get(k, [])) for k in MAP_STAGES}
+                out, ms = once(way, job, True)
+                runs[way].append(dict(ms=ms, stages={k: smp[k][-1] * 1e3 for k in MAP_STAGES
+                                                     if len(smp.get(k, [])) > n0[k]},
+                                      copied=g.copied_bytes - c0, out=(tuple(out), tr._pending_pt_remap)))
+        ref = runs["eager"][0]["out"]
+        equal = all(tree_equal(x["out"], ref) for w in runs for x in runs[w])
+        reads = {w: once(w, lambda: count_syncs(lambda: tr._mapping_compute(m, ki)))[1] for w in runs}
+        stage_ms = {w: {k: statistics.median(x["stages"][k] for x in runs[w]) for k in runs[w][0]["stages"]}
+                    for w in runs}
+        log(f"  {name} (slot {ki}): graphed {'torch.equal to' if equal else 'DIFFERENT from'} eager on every "
+            f"MapState field and the point remap; the first graphed run {first_ms:.1f} ms, its captures "
+            f"{captures_report(g, n_cap)}")
+        log(f"    wall ms eager {_ms([x['ms'] for x in runs['eager']])}, graphed "
+            f"{_ms([x['ms'] for x in runs['graphed']])}; by stage (medians, eager / graphed): "
+            + ", ".join(f"{k} {stage_ms['eager'][k]:.3f} / {stage_ms['graphed'].get(k, float('nan')):.3f}"
+                        for k in stage_ms["eager"]))
+        log(f"    device->host reads eager {len(reads['eager'])}, graphed {len(reads['graphed'])} (at "
+            f"{reads['graphed']}); copied into the static buffers {runs['graphed'][-1]['copied'] / 2**20:.1f} "
+            f"MiB a job")
+        if not equal:
+            bad.append(f"{name}: the graphed keyframe job differs from the eager one")
+        if len(reads["graphed"]) > len(reads["eager"]):
+            bad.append(f"{name}: {len(reads['graphed'])} reads graphed against {len(reads['eager'])} eager")
+        if profiled:
+            calls = {w: once(w, lambda: api_calls(lambda: tr._mapping_compute(m, ki))) for w in runs}
+            peak = {w: once(w, lambda: peak_gib(lambda: tr._mapping_compute(m, ki)))[1] for w in runs}
+            log(f"    host API calls eager {sum(calls['eager'].values())} {calls['eager']}, graphed "
+                f"{sum(calls['graphed'].values())} {calls['graphed']}; peak memory allocated eager "
+                f"{peak['eager']:.3f} GiB, graphed {peak['graphed']:.3f} GiB")
+            dev = {w: once(w, lambda: _stage_device_ms(tr, m, ki)) for w in runs}
+            log("    each stage alone under the profiler, device ms / wall ms / kernel launches, eager | "
+                "graphed: " + ", ".join(f"{k} {dev['eager'][k][0]:.3f} / {dev['eager'][k][1]:.3f} / "
+                                        f"{dev['eager'][k][2]} | {dev['graphed'][k][0]:.3f} / "
+                                        f"{dev['graphed'][k][1]:.3f} / {dev['graphed'][k][2]}"
+                                        for k in dev["eager"]))
+            log("    graphed mapping_front's largest device events:")
+            log_top(dev["graphed"]["map.front"][3])
+        tracker_restore(tr, state)
+    for sensor, tr in trackers.items():
+        g = tr.map_graphs
+        m = map_to_torch(next(c[2] for c in cases if c[1] == sensor), device)
+        nbytes = sum(x.numel() * x.element_size() for x in m)
+        groups = {}
+        for x in m:
+            d = torch.empty_like(x)
+            a, b = groups.setdefault(x.dtype, ([], []))
+            a.append(d)
+            b.append(x)
+        copy_ms, = cuda_ms_turns([lambda: [torch._foreach_copy_(a, b) for a, b in groups.values()]], ahead=True)
+        log(f"  {sensor} tracker: {g.captures} mapping captures, {g.replays} replays; graph pool "
+            f"{g.pool_bytes() / 2**20:.1f} MiB, static buffers {g.buffer_bytes() / 2**20:.1f} MiB; the whole "
+            f"map ({nbytes / 2**20:.1f} MiB) copied once, one _foreach_copy_ per dtype: {copy_ms:.4f} ms of "
+            f"device time ({nbytes / copy_ms / 1e6:.1f} GB/s), the rate at which a job's copy-in moves")
+        if g.captures > MAP_GRAPH_KEYS:
+            bad.append(f"{sensor}: {g.captures} mapping captures")
+    if bad:
+        raise AssertionError(f"mapping graphs: {bad}")
 
 
 def phase_place(smi: str, device: str = "cuda") -> dict:
@@ -2296,6 +2547,7 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rec, marks = [], []
     record = session_recorder(tr, rec)
+    map_recs = watch_map_jobs(tr)
     fast_nms.launches = 0
     gather_patches.launches = 0
     busy = [False]  # whether a mapping job was in flight when each frame began
@@ -2347,6 +2599,10 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
         f"{_ms([v * 1e3 for v in st.get('map.local_ba1', [])])}, chunk 2 "
         f"{_ms([v * 1e3 for v in st.get('map.local_ba2', [])])}, loop closing "
         f"{_ms([v * 1e3 for v in st.get('map.loop', [])])} (the mapping stream synchronized at each stage's end)")
+    steady = [j for j, r in enumerate(map_recs) if not r["captured"]]
+    log(f"  the mapping job on its thread after the mapping captures ({len(steady)} of {len(map_recs)} jobs): "
+        f"{_ms([jobs[j] for j in steady if j < len(jobs)])}; of which mapping_front "
+        f"{_ms([st['map.front'][j] * 1e3 for j in steady if j < len(st.get('map.front', []))])}")
     log(f"  keyframe insertions that waited on the job in flight: {c['map.insert_waits']}, waiting "
         f"{_ms([v * 1e3 for v in st.get('map.insert_wait', [])])}; InterruptBA signalled {c['map.interrupts']} "
         f"times, second local-BA chunks skipped {c['map.local_ba2_skipped']} of {len(jobs)} jobs")
@@ -2373,6 +2629,7 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
     if len(st.get("map.loop", [])) != len(jobs):
         bad.append(f"{len(st.get('map.loop', []))} loop stages in {len(jobs)} jobs")
     bad += graph_report("async mono", tr)
+    bad += map_graph_report("async mono", tr, map_recs)
     system.shutdown()
     if bad:
         raise AssertionError(f"async mono SLAM: {bad}")
@@ -2504,6 +2761,14 @@ def phase_mapping_process(scene: StepWallScene, smi: str) -> dict:
     if not closed:
         bad.append("shutdown left the worker process running")
     bad += graph_report("mapping process", tr)
+    w = rm.jobs[-1]["worker"] if rm.jobs else {}
+    log(f"  the worker's mapping graphs: map_graph_replays {w.get('map_graph_replays')} of {w.get('map_jobs')} "
+        f"keyframe jobs (the session's and the {PAR_TRANSPORT_JOBS} more), map_graph_captures "
+        f"{w.get('map_graph_captures')}; the tracker's own map_graphs ran {tr.map_graphs.runs} segments")
+    if not (w and w["map_graph_replays"] == w["map_jobs"] >= 1 and w["map_graph_captures"] <= MAP_GRAPH_KEYS):
+        bad.append(f"the worker's mapping graphs: {w}")
+    if tr.map_graphs.runs:
+        bad.append(f"the tracker's own map_graphs ran {tr.map_graphs.runs} segments with a mapping process")
     if bad:
         raise AssertionError(f"mapping process: {bad}")
     return launches
@@ -2734,6 +2999,8 @@ def main() -> int:
     sk = timed("stereo kernels", phase_stereo_kernels, stereo_scene, smi)
     stereo = timed("stereo SLAM", phase_stereo, stereo_scene, smi)
     rgbd = timed("RGB-D SLAM", phase_rgbd, smi)
+    timed("mapping graphs", phase_mapping_graphs, smi, mono, stereo, rgbd)
+    del mono["map_jobs"], stereo["map_job"], rgbd["map_job"]
     multi_launches = timed("MultiTracker", phase_multi, stereo_scene, smi)
     timed("place", phase_place, smi)
     timed("loop", phase_loop, smi)

@@ -120,21 +120,25 @@ def _set_row(a: torch.Tensor, ki, value, full) -> torch.Tensor:
     """a with row ki set to value, unless full: a copy, with no host sync
     (ki and full may be device scalars)."""
     row = ki.reshape(1)  # a 1-d index: a 0-d tensor index would read it on the host
-    if isinstance(value, torch.Tensor):
-        v = value.to(a.dtype)[None]
+    if isinstance(value, torch.Tensor):  # a row, or a 1-element tensor for a 1-d array
+        v = value.to(a.dtype).reshape(1, *a.shape[1:])
     else:  # a Python scalar: filled on the device, not copied from the host
         v = torch.full((1, *a.shape[1:]), value, dtype=a.dtype, device=a.device)
     return a.index_put((row,), torch.where(full, a.index_select(0, row), v))
 
 
-def insert_keyframe(m: MapState, feats: FrameFeatures, R, t, frame_id: int,
-                    obs_pt: torch.Tensor, slot: int | None = None):
+def insert_keyframe(m: MapState, feats: FrameFeatures, R, t, frame_id,
+                    obs_pt: torch.Tensor, slot=None):
     """Insert a keyframe at the next slot, or at an explicit recycled `slot`
     (the watermark then stays put). obs_pt: (N,) point index per keypoint
-    (-1 none). Returns (new_map, kf_index as a 0-d int64 tensor). A no-op
+    (-1 none); frame_id and slot are host numbers or 1-element tensors (no
+    host read). Returns (new_map, kf_index as a 0-d int64 tensor). A no-op
     when the map is full and no slot is given."""
     dev = m.kf_R.device
-    if slot is not None:
+    if isinstance(slot, torch.Tensor):
+        ki = slot.reshape(()).long()
+        full = torch.zeros((), dtype=torch.bool, device=dev)
+    elif slot is not None:
         ki = torch.full((), slot, dtype=torch.int64, device=dev)
         full = torch.zeros((), dtype=torch.bool, device=dev)
     else:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuslam_torch import _build
+from tpuslam_torch.ops.launch_count import count_launch
 from tpuslam_torch.ops.orb_common import FAST_OFFSETS
 
 
@@ -130,7 +131,7 @@ def _fast_nms_cuda(levels: list, min_th: float) -> list:
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = _build.lib().tpuslam_fast_nms_pyramid(params, float(min_th), stream)
     _build.check(status, "fast_nms")
-    fast_nms.launches += 1
+    count_launch(fast_nms)
     return outs
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from tpuslam_torch import _build
+from tpuslam_torch.ops.launch_count import count_launch
 
 PSIZE = 47  # patch side consumed by ops/orb.py
 
@@ -64,7 +65,7 @@ def _gather_patches_cuda(atlas: torch.Tensor, corner: torch.Tensor) -> torch.Ten
         stream = torch.cuda.current_stream(atlas.device).cuda_stream
         status = fn(atlas.data_ptr(), corner.data_ptr(), out.data_ptr(), n, Ha, Wa, stream)
     _build.check(status, "gather_patches")
-    gather_patches.launches += 1
+    count_launch(gather_patches)
     return out
 
 

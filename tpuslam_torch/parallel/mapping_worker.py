@@ -261,6 +261,10 @@ def _worker_main() -> int:
             t["compute_ms"] = _ms(t0)
             current_job[0] = 0
             t["ba2_skipped"] = engine.metrics.counters["map.local_ba2_skipped"] > skipped
+            # The engine's mapping graphs (captured here, in the worker).
+            t["map_jobs"] = engine.stats["map_jobs"]
+            t["map_graph_replays"] = engine.stats["map_graph_replays"]
+            t["map_graph_captures"] = engine.stats["map_graph_captures"]
             t0 = time.perf_counter()
             out = _map_to_numpy(m)
             remap = engine._pending_pt_remap

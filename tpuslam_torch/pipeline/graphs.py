@@ -37,7 +37,9 @@ same static buffers, so the CPU tests go through the same copies.
 No fallback: a capture or replay that fails raises. The kernel launch
 counters (ops/fast.py's fast_nms.launches, ops/patches.py's
 gather_patches.launches) do not move on a replay, so each graph records
-the launches it captured and adds them on each replay.
+the launches it captured (the capturing thread's own tally,
+ops/launch_count.py) and adds them on each replay. Captures take turns
+across threads.
 """
 
 from __future__ import annotations
@@ -45,15 +47,23 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import gc
+import threading
 import time
 
 import torch
 
 from tpuslam_torch.ops.fast import fast_nms
+from tpuslam_torch.ops.launch_count import capture_tally
 from tpuslam_torch.ops.patches import gather_patches
 
 _COUNTERS = (fast_nms, gather_patches)
 _CU_GRAPH_NODE_TYPE_KERNEL = 0  # CUgraphNodeType
+
+# One capture at a time in the process. Entering torch.cuda.graph
+# synchronizes the device and empties the allocator's cache, which
+# invalidates a capture under way in another thread (the tracking thread
+# and an async_mapping thread each capture into their own StepGraphs).
+_capture_lock = threading.Lock()
 
 
 def _flatten(tree, path: str, leaves: list):
@@ -118,15 +128,19 @@ class _Captured:
 
 
 class StepGraphs:
-    """The segments of one owner's programs (a tracker's frame step and
-    relocalization, a MultiTracker's front end, one essential-graph
-    solve), by key: static input buffers, and on a card the captured
-    graphs, all sharing one memory pool (one capture at a time, replays in
-    the calling thread's order)."""
+    """The segments of one owner's programs (a tracker's frame step,
+    keyframe insertion and relocalization; a tracker's LocalMapping job; a
+    MultiTracker's front end; one essential-graph solve), by key: static
+    input buffers, and on a card the captured graphs, all sharing one
+    memory pool (one capture at a time, replays in the calling thread's
+    order). One thread uses an object at a time: a tracker's mapping job
+    has its own (`Tracker.map_graphs`), as it may run on another thread.
+    `stage` names the metrics stage that times the captures."""
 
-    def __init__(self, device, metrics=None):
+    def __init__(self, device, metrics=None, stage: str = "track.capture"):
         self.device = torch.device(device)
-        self.metrics = metrics  # stage "track.capture" when given
+        self.metrics = metrics
+        self.stage = stage
         self._buffers = {}      # (path, shape, dtype) -> static tensor
         self._sources = {}      # the same key -> (last source, its _version)
         self._graphs = {}       # key -> _Captured
@@ -134,6 +148,8 @@ class StepGraphs:
         self._side = None       # the warm-up stream
         self.captures = 0
         self.replays = 0
+        self.runs = 0  # calls of run (replays, captures and CPU calls)
+        self.copied_bytes = 0  # bytes copied into the static buffers
         # The kernels' launches that came from replays (a part of their
         # counters).
         self.replayed_launches = {c.__name__: 0 for c in _COUNTERS}
@@ -145,6 +161,7 @@ class StepGraphs:
         """fn(**inputs, **static) through the key's static buffers: on a
         card a replay of its graph (captured on first use), elsewhere a
         call. Returns fn's outputs as new tensors."""
+        self.runs += 1
         leaves = []
         parts = {k: _flatten(v, k, leaves) for k, v in inputs.items()}
         bufs = iter(self._copy_in(leaves))
@@ -160,8 +177,9 @@ class StepGraphs:
             entry.graph.replay()
             self.replays += 1
             for counter, n in zip(_COUNTERS, entry.launches):
-                counter.launches += n
-                self.replayed_launches[counter.__name__] += n
+                if n:  # no write where nothing launched: another thread may be counting
+                    counter.launches += n
+                    self.replayed_launches[counter.__name__] += n
             out = entry.out
         out_leaves = []
         rebuild_out = _flatten(out, "", out_leaves)
@@ -185,6 +203,7 @@ class StepGraphs:
             dst, src = pending.setdefault(t.dtype, ([], []))
             dst.append(buf)
             src.append(t)
+            self.copied_bytes += t.numel() * t.element_size()
         for dst, src in pending.values():
             torch._foreach_copy_(dst, src)
         return bufs
@@ -198,7 +217,7 @@ class StepGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(dev)
-        timer = self.metrics.stage("track.capture") if self.metrics is not None else contextlib.nullcontext()
+        timer = self.metrics.stage(self.stage) if self.metrics is not None else contextlib.nullcontext()
         with timer:
             t0 = time.perf_counter()
             cur = torch.cuda.current_stream(dev)
@@ -206,27 +225,25 @@ class StepGraphs:
             with torch.cuda.stream(self._side):
                 fn(**args, **static)
             cur.wait_stream(self._side)
-            before = [c.launches for c in _COUNTERS]
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             t1 = time.perf_counter()
             # A CUDAGraph that the collector frees inside the capture would
             # destroy itself there, which invalidates the capture: collect
             # first, and not during it.
-            collecting = gc.isenabled()
-            gc.collect()
-            gc.disable()
-            try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=self._side,
-                                      capture_error_mode="thread_local"):
-                    out = fn(**args, **static)
-            finally:
-                if collecting:
-                    gc.enable()
+            with _capture_lock, capture_tally() as tally:
+                collecting = gc.isenabled()
+                gc.collect()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool, stream=self._side,
+                                          capture_error_mode="thread_local"):
+                        out = fn(**args, **static)
+                finally:
+                    if collecting:
+                        gc.enable()
             cur.wait_stream(self._side)
             # The capture recorded these launches; none ran.
-            launches = tuple(c.launches - b for c, b in zip(_COUNTERS, before))
-            for c, b in zip(_COUNTERS, before):
-                c.launches = b
+            launches = tuple(tally.get(c.__name__, 0) for c in _COUNTERS)
             t2 = time.perf_counter()
             nodes, kernel_nodes = _graph_nodes(graph.raw_cuda_graph())
             t3 = time.perf_counter()

@@ -23,9 +23,14 @@ stable argsort make in the JAX package keep their ties to the lower index
 here (a stable sort).
 
 The mapping half (LocalMapping: triangulation, point culling, fusion,
-keyframe culling, local bundle adjustment) takes the keyframe it works
-around as a host int, as the tracker holds it, and batches the neighbour
-pairs the JAX package vmaps in chunks of 4 as a leading dim of 4.
+keyframe culling, local bundle adjustment) is segments too: the JAX
+package's jitted mapping_front as compose_mapping_front's six (map_head,
+map_tri, map_insert, map_fuse, map_fuse_apply, map_tail; the neighbour
+pairs the JAX package vmaps run 4 at a time, the last chunk padded and
+masked), local_ba_segment, normals_segment, compact_segment and
+kf_insert_segment. They take the keyframe as a 1-element index tensor and
+return only the map fields they change; the one read is the two list
+lengths after map_head.
 """
 
 from __future__ import annotations
@@ -41,10 +46,13 @@ from tpuslam_torch.mapstate.core import (
     FrameFeatures,
     MapState,
     _nanmedian_last,
+    compact_point_slots,
     compute_point_descriptors,
     covisibility_weights,
+    insert_keyframe,
     insert_points,
     shared_point_counts,
+    update_point_normals,
 )
 from tpuslam_torch.matching.hamming import hamming_matrix
 from tpuslam_torch.matching.search import (
@@ -760,12 +768,13 @@ def _intrinsics(cam: PinholeCamera, device: torch.device):
     return cam.K.to(device), torch.linalg.inv(cam.K).to(device)
 
 
-def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new: int, kf_old, inv_sigma2_table,
+def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new, kf_old, inv_sigma2_table,
                            scale_factor: float = 1.2, n_levels: int = 8):
-    """LocalMapping::CreateNewMapPoints between keyframe `kf_new` and each of
-    the keyframes `kf_old` (a (C,) tensor: C pairs at once): epipolar-
-    constrained matching of unmatched keypoints, two-view triangulation,
-    cheirality / parallax / reprojection / scale-consistency vetting.
+    """LocalMapping::CreateNewMapPoints between keyframe `kf_new` (a host
+    int or a 1-element index tensor) and each of the keyframes `kf_old` (a
+    (C,) tensor: C pairs at once): epipolar-constrained matching of
+    unmatched keypoints, two-view triangulation, cheirality / parallax /
+    reprojection / scale-consistency vetting.
 
     Returns (xyz (C, N, 3), desc (N, 8), normals (C, N, 3), min_d (C, N),
     max_d (C, N), slot_new (N,), slot_old (C, N), good (C, N)): one candidate
@@ -773,21 +782,25 @@ def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new: int, kf_old,
     N = m.kf_kp_xy.shape[1]
     dev = m.kf_R.device
     ko = kf_old.long()
+
+    def new(x):
+        return _row(x, kf_new)
+
     R1, t1 = m.kf_R[ko], m.kf_t[ko]             # (C, 3, 3), (C, 3)
-    R2, t2 = m.kf_R[kf_new], m.kf_t[kf_new]     # (3, 3), (3,)
+    R2, t2 = new(m.kf_R), new(m.kf_t)           # (3, 3), (3,)
     C1 = -(R1.transpose(-1, -2) @ t1[..., None])[..., 0]
     C2 = -(R2.T @ t2)
 
     # Baseline gate: skip a pair whose baseline is below 1% of the new
     # keyframe's median scene depth.
-    obs_new = m.kf_obs_pt[kf_new]
-    obs_ok = (obs_new >= 0) & m.kf_kp_valid[kf_new]
+    obs_new = new(m.kf_obs_pt)
+    obs_ok = (obs_new >= 0) & new(m.kf_kp_valid)
     pc = se3_apply(R2, t2, m.pt_xyz[obs_new.clamp(min=0).long()])
     med = _nanmedian_last(torch.where(obs_ok, pc[:, 2], float("nan")))
     med = torch.where(torch.isnan(med), 1.0, med)
     pair_ok = torch.linalg.norm(C2 - C1, dim=-1) > 0.01 * med  # (C,)
     free1 = m.kf_kp_valid[ko] & (m.kf_obs_pt[ko] < 0) & pair_ok[:, None]
-    free2 = m.kf_kp_valid[kf_new] & (m.kf_obs_pt[kf_new] < 0) & pair_ok[:, None]
+    free2 = new(m.kf_kp_valid) & (new(m.kf_obs_pt) < 0) & pair_ok[:, None]
 
     # F12 relates old (1) to new (2); the epipolar line of an old keypoint
     # in the new image is F12^T x1.
@@ -795,22 +808,22 @@ def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new: int, kf_old,
     t12 = t1 - (R12 @ t2[:, None])[..., 0]
     K, Kinv = _intrinsics(cam, dev)
     F12 = Kinv.T @ hat(t12) @ R12 @ Kinv
-    xy1, xy2 = m.kf_kp_xy[ko], m.kf_kp_xy[kf_new]
+    xy1, xy2 = m.kf_kp_xy[ko], new(m.kf_kp_xy)
     ones = torch.ones((*xy1.shape[:-1], 1), device=dev)
     l2 = torch.cat([xy1, ones], dim=-1) @ F12  # (C, N, 3)
     x2h = torch.cat([xy2, ones[0]], dim=-1)
     num = torch.abs(l2 @ x2h.T)  # (C, N1, N2)
     den = torch.sqrt(torch.clamp(l2[..., 0] ** 2 + l2[..., 1] ** 2, min=1e-12))[..., None]
-    lvl_new = torch.clamp(m.kf_kp_level[kf_new], 0, n_levels - 1).long()
+    lvl_new = torch.clamp(new(m.kf_kp_level), 0, n_levels - 1).long()
     epi_ok = (num / den) ** 2 < 3.84 * (1.0 / inv_sigma2_table[lvl_new])
 
     pair = free1[:, :, None] & free2[:, None, :] & epi_ok
-    dist = torch.where(pair, hamming_matrix(m.kf_kp_desc[ko], m.kf_kp_desc[kf_new]), _BIG)
+    dist = torch.where(pair, hamming_matrix(m.kf_kp_desc[ko], new(m.kf_kp_desc)), _BIG)
     i1 = torch.argmin(dist, dim=1)  # best old keypoint for each new one (the first)
     d1 = torch.gather(dist, 1, i1[:, None])[:, 0]
     matched = d1 <= TH_LOW
     ang_old = torch.gather(m.kf_kp_angle[ko], 1, i1)
-    matched = rotation_consistency_mask(ang_old, m.kf_kp_angle[kf_new], matched)
+    matched = rotation_consistency_mask(ang_old, new(m.kf_kp_angle), matched)
     matched = resolve_duplicates(i1, d1, matched, N)
 
     C = ko.shape[0]
@@ -838,7 +851,7 @@ def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new: int, kf_old,
     chei = (p1[..., 2] > 0) & (p2[..., 2] > 0)
 
     sf1 = sf_pow(scale_factor, torch.gather(m.kf_kp_level[ko], 1, i1))
-    sf2 = sf_pow(scale_factor, m.kf_kp_level[kf_new])
+    sf2 = sf_pow(scale_factor, new(m.kf_kp_level))
     ratio_d = d1v / torch.clamp(d2v, min=1e-9)
     ratio_o = sf1 / sf2
     ratio_factor = 1.5 * scale_factor
@@ -848,13 +861,14 @@ def triangulate_new_points(cam: PinholeCamera, m: MapState, kf_new: int, kf_old,
     nvec = r2v / torch.clamp(torch.linalg.norm(r2v, dim=-1, keepdim=True), min=1e-9)
     max_d = d2v * sf2
     min_d = max_d / (scale_factor ** (n_levels - 1))
-    return (Xw, m.kf_kp_desc[kf_new], nvec, 0.8 * min_d, 1.2 * max_d,
+    return (Xw, new(m.kf_kp_desc), nvec, 0.8 * min_d, 1.2 * max_d,
             torch.arange(N, dtype=torch.int32, device=dev), i1.to(torch.int32), good)
 
 
-def build_local_ba_problem(m: MapState, center_kf: int, window: int):
+def build_local_ba_problem(m: MapState, center_kf, window: int):
     """The bundle-adjustment edges over the centre keyframe's covisibility
-    neighbourhood (Optimizer::LocalBundleAdjustment). Active: the centre and
+    neighbourhood (Optimizer::LocalBundleAdjustment), the centre a host int
+    or a 1-element index tensor (no host read). Active: the centre and
     every keyframe sharing >= 15 points with it, or, with none, the `window`
     newest keyframes by frame id. Fixed: every other valid keyframe and
     keyframe 0. Returns (kf (K*N,), pt (K*N,), uvr (K*N, 3), has (K*N,),
@@ -881,7 +895,7 @@ def build_local_ba_problem(m: MapState, center_kf: int, window: int):
     return kfi, pti.clamp(min=0), uvr, has, fixed_kf, ~seen_active
 
 
-def local_bundle_adjustment(cam: PinholeCamera, m: MapState, center_kf: int, inv_sigma2_table,
+def local_bundle_adjustment(cam: PinholeCamera, m: MapState, center_kf, inv_sigma2_table,
                             window: int = 8, iters: int = 8, n_levels: int = 8,
                             max_edges: int = 65536, active_max: int = 32) -> MapState:
     """Local BA over the centre keyframe's covisibility neighbourhood, the
@@ -932,6 +946,22 @@ def local_bundle_adjustment(cam: PinholeCamera, m: MapState, center_kf: int, inv
     return m._replace(kf_R=R, kf_t=t, pt_xyz=X, kf_obs_pt=obs.reshape(K, N))
 
 
+# The map fields the local BA reads, and those it changes.
+LOCAL_BA_FIELDS = ("kf_R", "kf_t", "kf_valid", "kf_frame_id", "kf_obs_pt", "kf_kp_valid", "kf_kp_xy",
+                   "kf_kp_uright", "kf_kp_level", "pt_xyz", "pt_valid")
+LOCAL_BA_CHANGED = ("kf_R", "kf_t", "pt_xyz", "kf_obs_pt")
+
+
+def local_ba_segment(cam: PinholeCamera, m: MapState, center_kf, inv_sigma2_table, *, window: int,
+                     iters: int, n_levels: int, max_edges: int, active_max: int) -> MapState:
+    """local_bundle_adjustment as a segment: the centre a 1-element index
+    tensor, the chi2 detach inside. Returns the changed fields (poses,
+    points, the observation table), every other field None."""
+    out = local_bundle_adjustment(cam, m, center_kf, inv_sigma2_table, window=window, iters=iters,
+                                  n_levels=n_levels, max_edges=max_edges, active_max=active_max)
+    return map_fields(out, LOCAL_BA_CHANGED)
+
+
 def _observation_counts(m: MapState) -> torch.Tensor:
     """(P + 1,) float32 keyframe observations of each point (slot P: none)."""
     P = m.capacity_pt
@@ -941,7 +971,7 @@ def _observation_counts(m: MapState) -> torch.Tensor:
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
 
 
-def cull_map_points(m: MapState, current_kf: int, min_kf_obs: float = 3.0) -> MapState:
+def cull_map_points(m: MapState, current_kf, min_kf_obs: float = 3.0) -> MapState:
     """MapPointCulling: invalidate points whose found/visible ratio is below
     0.25 (after 4 sightings), or that two keyframes after creation are seen
     by fewer than `min_kf_obs` keyframes; their observations are detached."""
@@ -994,7 +1024,7 @@ def _fuse_pair_match(cam: PinholeCamera, m: MapState, cnt, src, dst, inv_sigma2_
     return idx, add, merge, torch.where(keep_src, p_src, qs), torch.where(keep_src, qs, p_src)
 
 
-def cull_keyframes(m: MapState, current_kf: int, protect: torch.Tensor):
+def cull_keyframes(m: MapState, current_kf, protect: torch.Tensor):
     """KeyFrameCulling: invalidate unprotected keyframes whose observed
     points are >= 90% redundant (each seen by at least 3 other keyframes).
     A culled keyframe keeps its pose, detaches its observations and records
@@ -1043,14 +1073,18 @@ def _top_covis(rows: torch.Tensor, fids: torch.Tensor, anchors: torch.Tensor, n:
     return torch.where((tv > 0).any(dim=1, keepdim=True), covis, recent)
 
 
-def best_covisible_ids(m: MapState, anchor: int, n: int) -> torch.Tensor:
-    """The ids of keyframe `anchor`'s n most covisible keyframes, -1 padded
+def best_covisible_ids(m: MapState, anchor, n: int) -> torch.Tensor:
+    """The ids of keyframe `anchor`'s (a host int or a 1-element index
+    tensor) n most covisible keyframes, -1 padded
     (KeyFrame::GetBestCovisibilityKeyFrames); the n newest by frame id when
     it has no covisible keyframe. (n,) int64."""
     n = min(n, m.kf_obs_pt.shape[0])
     shared = torch.where(m.kf_valid, shared_point_counts(m, anchor), 0.0)
     fids = torch.where(m.kf_valid, m.kf_frame_id, -1)
-    anchors = torch.full((1,), anchor, dtype=torch.int64, device=shared.device)
+    if isinstance(anchor, torch.Tensor):
+        anchors = anchor.reshape(1).long()
+    else:
+        anchors = torch.full((1,), anchor, dtype=torch.int64, device=shared.device)
     return _top_covis(shared[None], fids, anchors, n)[0]
 
 
@@ -1080,48 +1114,50 @@ def _mark_max(mask: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch
 
 _PAIRS_PER_CHUNK = 4  # keyframe pairs matched at once: (4, N, N) planes
 
+# The map fields each LocalMapping segment reads (the copy-in moves these
+# and no others); each segment returns only the fields it changes.
+MAP_HEAD_FIELDS = ("kf_obs_pt", "kf_kp_valid", "kf_valid", "kf_frame_id", "pt_valid", "pt_xyz")
+TRI_MAP_FIELDS = ("kf_R", "kf_t", "kf_obs_pt", "kf_kp_valid", "kf_kp_xy", "kf_kp_level", "kf_kp_desc",
+                  "kf_kp_angle", "pt_xyz")
+INSERT_MAP_FIELDS = ("kf_obs_pt", "kf_kp_valid", "kf_valid", "kf_kp_desc", "pt_xyz", "pt_valid", "pt_desc",
+                     "pt_normal", "pt_min_dist", "pt_max_dist", "pt_ref_kf", "pt_first_kf", "pt_found",
+                     "pt_visible", "n_pt")
+FUSE_MAP_FIELDS = ("kf_R", "kf_t", "kf_obs_pt", "kf_kp_valid", "kf_kp_xy", "kf_kp_level", "kf_kp_desc",
+                   "kf_kp_angle", "pt_valid", "pt_xyz", "pt_desc", "pt_max_dist")
+FUSE_APPLY_FIELDS = ("kf_obs_pt", "pt_valid", "pt_xyz")
+TAIL_MAP_FIELDS = ("kf_R", "kf_t", "kf_valid", "kf_frame_id", "kf_obs_pt", "kf_kp_valid", "kf_kp_desc",
+                   "kf_parent", "kf_rel_R", "kf_rel_t", "pt_xyz", "pt_valid", "pt_desc")
+# What insert_points changes (the point arrays, the watermark).
+POINT_FIELDS = ("pt_xyz", "pt_valid", "pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist", "pt_ref_kf",
+                "pt_first_kf", "pt_found", "pt_visible", "n_pt")
 
-def mapping_front(cam: PinholeCamera, m: MapState, ki: int, inv_sigma2_table, min_kf_obs: float, *,
-                  scale_factor: float, n_levels: int, nn_tri: int, nn_fuse: int, fuse_hop: int,
-                  window: int) -> MapState:
-    """The LocalMapping epoch for new keyframe `ki`, in LocalMapping::Run's
-    order:
 
-      1. triangulation against the `nn_tri` most covisible keyframes
-         (CreateNewMapPoints), 4 pairs at a time; each keypoint takes
-         the first good neighbour in list order, as a new point there removes
-         the keypoint from the later neighbours' search;
-      2. recent-point culling (MapPointCulling);
-      3. fusion in both directions against the deduped two-hop neighbour set
-         (SearchInNeighbors): every pair matched against one state, then one
-         merge map (the last pair wins a conflict; the (count, index) order
-         keeps chains acyclic, collapsed by pointer jumping) and one
-         scatter of the added observations;
-      4. the representative descriptors of the new keyframe's points;
-      5. redundant-keyframe culling (KeyFrameCulling), protecting keyframes
-         0 and 1, `ki`, and the `window` newest and most covisible.
+def merge_fields(m: MapState, part: MapState) -> MapState:
+    """m with the fields that `part` holds (a segment's changed fields)."""
+    return m._replace(**{k: v for k, v in part._asdict().items() if v is not None})
 
-    Both neighbour lists come from the covisibility at the epoch's start,
-    their ids first and -1 after; their lengths are read to the host at once
-    (one device->host read), so that only the pairs that exist are matched:
-    the JAX package runs every slot of its static lists and disables the
-    empty ones, which changes nothing else.
-    """
+
+def map_head_segment(m: MapState, ki, *, nn_tri: int, nn_fuse: int, fuse_hop: int):
+    """The LocalMapping epoch's head, as a segment: covisibility at the
+    epoch's start, keyframe `ki`'s (a 1-element index tensor) neighbour
+    list and its deduped two-hop fuse list. Returns (neighbours, ids first
+    and -1 after, padded with -1 to whole chunks; the directed fuse pairs
+    (max_pairs, 2), ki -> each fuse target, then each target -> ki, -1
+    after; counts (2,): the lengths of both lists, for the host; the
+    triangulation's running state before any chunk; the fusion's before
+    any chunk)."""
     K, N = m.kf_obs_pt.shape
-    P = m.capacity_pt
-    dev = m.kf_R.device
-    cols = torch.arange(N, device=dev)
-
+    dev = m.kf_obs_pt.device
     W = covisibility_weights(m)
     W = torch.where(m.kf_valid[None, :] & m.kf_valid[:, None], W, 0.0)
     fids = torch.where(m.kf_valid, m.kf_frame_id, -1)
-    ki_t = torch.full((1,), ki, dtype=torch.int64, device=dev)
+    ki = ki.reshape(1).long()
 
     def top_covis(anchors, n):
         return _top_covis(W[anchors.long()], fids, anchors, n)
 
-    neighbors = top_covis(ki_t, min(nn_tri, K))[0]
-    targets = top_covis(ki_t, min(nn_fuse, K))[0]
+    neighbors = top_covis(ki, min(nn_tri, K))[0]
+    targets = top_covis(ki, min(nn_fuse, K))[0]
     if fuse_hop > 0:
         hops = torch.where(targets[:, None] >= 0, top_covis(targets.clamp(min=0), min(fuse_hop, K)), -1)
         ext = torch.cat([targets, hops.reshape(-1)])
@@ -1130,68 +1166,129 @@ def mapping_front(cam: PinholeCamera, m: MapState, ki: int, inv_sigma2_table, mi
     ext = torch.where(ext == ki, -1, ext)
     if fuse_hop > 0:
         ext = dedupe_fuse_targets(ext, K, nn_fuse)
-    n_nb, n_ext = (int(n) for n in torch.stack([(neighbors >= 0).sum(), (ext >= 0).sum()]).cpu())
-    nbs, ext = neighbors[:n_nb], ext[:n_ext]
+    counts = torch.stack([(neighbors >= 0).sum(), (ext >= 0).sum()])
 
-    # -- 1. triangulation ---------------------------------------------------
-    if n_nb:
-        c = _PAIRS_PER_CHUNK
-        outs = [triangulate_new_points(cam, m, ki, nbs[i:i + c], inv_sigma2_table,
-                                       scale_factor=scale_factor, n_levels=n_levels)
-                for i in range(0, n_nb, c)]
-        xyz, nvec, mind, maxd, slot_old, good = (torch.cat([o[i] for o in outs])
-                                                  for i in (0, 2, 3, 4, 6, 7))
-        choice = good.to(torch.uint8).argmax(dim=0)  # the first good neighbour
-        sel = good.any(dim=0)
-        m, slots = insert_points(m, xyz[choice, cols], m.kf_kp_desc[ki], ki, sel,
-                                 nvec[choice, cols], mind[choice, cols], maxd[choice, cols])
-        created = sel & (slots >= 0)
-        flat_obs = torch.cat([m.kf_obs_pt.reshape(-1), m.kf_obs_pt.new_zeros(1)])
-        idx_new = torch.where(created, ki * N + cols, K * N)
-        idx_old = torch.where(created, nbs[choice] * N + slot_old[choice, cols], K * N)
-        val = torch.where(created, slots, 0)
-        flat_obs = scatter_last(flat_obs, idx_new, val)
-        flat_obs = scatter_last(flat_obs, idx_old, val)
-        m = m._replace(kf_obs_pt=flat_obs[: K * N].reshape(K, N))
+    c = _PAIRS_PER_CHUNK
+    nbs = torch.cat([neighbors, neighbors.new_full((-neighbors.shape[0] % c,), -1)])
+    L = ext.shape[0]
+    max_pairs = 2 * L + (-2 * L) % c
+    r = torch.arange(max_pairs, device=dev)
+    n_ext = counts[1]
+    fwd, back = r < n_ext, (r >= n_ext) & (r < 2 * n_ext)
+    other = torch.where(fwd, ext[r.clamp(max=L - 1)], torch.where(back, ext[(r - n_ext).clamp(0, L - 1)], -1))
+    own = torch.where(fwd | back, ki, -1)
+    pairs = torch.stack([torch.where(fwd, own, other), torch.where(fwd, other, own)], 1)
 
-    # -- 2. recent-point culling ---------------------------------------------
-    m = cull_map_points(m, ki, min_kf_obs)
+    tri = (torch.zeros(N, dtype=torch.bool, device=dev), torch.zeros((N, 3), device=dev),
+           torch.zeros((N, 3), device=dev), torch.zeros(N, device=dev), torch.zeros(N, device=dev),
+           torch.zeros(N, dtype=torch.int32, device=dev), torch.zeros(N, dtype=torch.int64, device=dev))
+    fused = (torch.full((max_pairs, N), K * N, dtype=torch.int64, device=dev),
+             torch.zeros((max_pairs, N), dtype=torch.bool, device=dev),
+             torch.zeros((max_pairs, N), dtype=torch.int32, device=dev),
+             torch.zeros((max_pairs, N), dtype=torch.int32, device=dev),
+             torch.full((max_pairs, N), -1, dtype=torch.int32, device=dev))
+    return nbs, pairs, counts, tri, fused
 
-    # -- 3. two-hop fusion in both directions ------------------------------
-    if n_ext:
-        ki_col = torch.full_like(ext, ki)
-        pairs = torch.cat([torch.stack([ki_col, ext], 1), torch.stack([ext, ki_col], 1)])
-        cnt = _observation_counts(m)[:P]
-        c = _PAIRS_PER_CHUNK
-        fz = [_fuse_pair_match(cam, m, cnt, pairs[i:i + c, 0], pairs[i:i + c, 1],
-                               inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels)
-              for i in range(0, 2 * n_ext, c)]
-        tgt_slot, add, merge, winner, loser = (torch.cat(a) for a in zip(*fz))
 
-        merge_f = merge.reshape(-1)
-        repl = scatter_last(torch.arange(P + 1, device=dev), torch.where(merge_f, loser.reshape(-1), P),
-                            torch.where(merge_f, winner.reshape(-1), P).long())
-        for _ in range(3):  # pointer jumping: chains up to depth 8
-            repl = repl[repl]
-        repl = repl[:P]
-        obs = m.kf_obs_pt
-        obs = torch.where(obs >= 0, repl[obs.clamp(min=0).long()].to(obs.dtype), obs)
-        pt_valid = m.pt_valid & (repl == torch.arange(P, device=dev))
+def tri_chunk_segment(cam: PinholeCamera, m: MapState, ki, kf_old, tri, inv_sigma2_table, *,
+                      scale_factor: float, n_levels: int):
+    """One chunk of CreateNewMapPoints as a segment: keyframe ki against the
+    neighbours kf_old ((4,), -1 rows masked), folded into the running state
+    tri = (taken (N,), xyz, normal, min_d, max_d, the old keyframe's slot,
+    the neighbour id): a keypoint not yet taken takes the first good
+    neighbour of this chunk, so across chunks each keypoint holds its first
+    good neighbour in list order."""
+    have, xyz, nvec, mind, maxd, slot_old, nb = tri
+    N = m.kf_obs_pt.shape[1]
+    cols = torch.arange(N, device=kf_old.device)
+    X, _, nv, mn, mx, _, so, good = triangulate_new_points(
+        cam, m, ki, kf_old.clamp(min=0), inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels)
+    good = good & (kf_old >= 0)[:, None]
+    first = good.to(torch.uint8).argmax(dim=0)  # the chunk's first good neighbour
+    take = good.any(dim=0) & ~have
+    t3 = take[:, None]
+    return (have | take, torch.where(t3, X[first, cols], xyz), torch.where(t3, nv[first, cols], nvec),
+            torch.where(take, mn[first, cols], mind), torch.where(take, mx[first, cols], maxd),
+            torch.where(take, so[first, cols], slot_old), torch.where(take, kf_old[first], nb))
 
-        # Observations for the matched free keypoints of every pair at once.
-        flat_idx = torch.where(add, pairs[:, 1:] * N + tgt_slot, K * N).reshape(-1)
-        src_obs = m.kf_obs_pt[pairs[:, 0]]
-        val = repl[src_obs.clamp(min=0).long()].to(obs.dtype).reshape(-1)
-        obs_flat = scatter_last(torch.cat([obs.reshape(-1), obs.new_zeros(1)]), flat_idx, val)
-        m = m._replace(kf_obs_pt=obs_flat[: K * N].reshape(K, N), pt_valid=pt_valid)
 
-    # -- 4. descriptors of the new keyframe's points -------------------------
-    cur = m.kf_obs_pt[ki]
+def insert_cull_segment(m: MapState, ki, tri, *, min_kf_obs: float):
+    """The triangulated points inserted (each observed by keyframe ki and by
+    its neighbour), then recent-point culling (MapPointCulling), as a
+    segment. Returns (the changed fields: points, watermark, observation
+    table; each point's observation count (P,) after the culling, for
+    fusion's merge arbitration)."""
+    have, xyz, nvec, mind, maxd, slot_old, nb = tri
+    K, N = m.kf_obs_pt.shape
+    cols = torch.arange(N, device=xyz.device)
+    m, slots = insert_points(m, xyz, _row(m.kf_kp_desc, ki), ki, have, nvec, mind, maxd)
+    created = have & (slots >= 0)
+    flat_obs = torch.cat([m.kf_obs_pt.reshape(-1), m.kf_obs_pt.new_zeros(1)])
+    val = torch.where(created, slots, 0)
+    flat_obs = scatter_last(flat_obs, torch.where(created, ki * N + cols, K * N), val)
+    flat_obs = scatter_last(flat_obs, torch.where(created, nb * N + slot_old, K * N), val)
+    m = cull_map_points(m._replace(kf_obs_pt=flat_obs[: K * N].reshape(K, N)), ki, min_kf_obs)
+    return map_fields(m, POINT_FIELDS + ("kf_obs_pt",)), _observation_counts(m)[:m.capacity_pt]
+
+
+def fuse_chunk_segment(cam: PinholeCamera, m: MapState, cnt, pairs, fused, inv_sigma2_table, *,
+                       scale_factor: float, n_levels: int):
+    """The match phase of SearchInNeighbors for 4 directed pairs ((4, 2)
+    src -> dst, -1 rows masked), as a segment. `fused` holds the earlier
+    chunks' rows, each (max_pairs, N): the flat observation index of each
+    added observation (K*N where none), merge, winner, loser, and the
+    source keyframe's observation row. This chunk's 4 rows are appended
+    and the 4 oldest dropped, so after the last chunk the pairs' rows are
+    in list order behind rows that add and merge nothing."""
+    K, N = m.kf_obs_pt.shape
+    ok = (pairs[:, 0] >= 0)[:, None]
+    src, dst = pairs[:, 0].clamp(min=0), pairs[:, 1].clamp(min=0)
+    tgt_slot, add, merge, winner, loser = _fuse_pair_match(
+        cam, m, cnt, src, dst, inv_sigma2_table, scale_factor=scale_factor, n_levels=n_levels)
+    rows = (torch.where(add & ok, dst[:, None] * N + tgt_slot, K * N), merge & ok, winner, loser,
+            m.kf_obs_pt[src])
+    c = pairs.shape[0]
+    return tuple(torch.cat([f[c:], x]) for f, x in zip(fused, rows))
+
+
+def fuse_apply_segment(m: MapState, fused):
+    """Fusion's merges and additions of every pair at once, as a segment:
+    one merge map (the last pair wins a conflict; the (count, index) order
+    keeps chains acyclic, collapsed by pointer jumping) and one scatter of
+    the added observations. Returns the changed fields (observation table,
+    point validity)."""
+    flat_idx, merge, winner, loser, src_obs = fused
+    K, N = m.kf_obs_pt.shape
+    P = m.capacity_pt
+    dev = flat_idx.device
+    merge_f = merge.reshape(-1)
+    repl = scatter_last(torch.arange(P + 1, device=dev), torch.where(merge_f, loser.reshape(-1), P),
+                        torch.where(merge_f, winner.reshape(-1), P).long())
+    for _ in range(3):  # pointer jumping: chains up to depth 8
+        repl = repl[repl]
+    repl = repl[:P]
+    obs = m.kf_obs_pt
+    obs = torch.where(obs >= 0, repl[obs.clamp(min=0).long()].to(obs.dtype), obs)
+    pt_valid = m.pt_valid & (repl == torch.arange(P, device=dev))
+    # Observations for the matched free keypoints of every pair at once.
+    val = repl[src_obs.clamp(min=0).long()].to(obs.dtype).reshape(-1)
+    obs_flat = scatter_last(torch.cat([obs.reshape(-1), obs.new_zeros(1)]), flat_idx.reshape(-1), val)
+    return map_fields(m._replace(kf_obs_pt=obs_flat[: K * N].reshape(K, N), pt_valid=pt_valid),
+                      ("kf_obs_pt", "pt_valid"))
+
+
+def map_tail_segment(m: MapState, ki, *, window: int):
+    """The epoch's tail, as a segment: the representative descriptors of
+    keyframe ki's points, then redundant-keyframe culling (KeyFrameCulling)
+    protecting keyframes 0 and 1, ki, and the `window` newest and most
+    covisible. Returns the changed fields."""
+    K, N = m.kf_obs_pt.shape
+    P = m.capacity_pt
+    dev = m.kf_obs_pt.device
+    cur = _row(m.kf_obs_pt, ki)
     touched = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill(
         0, torch.where(cur >= 0, cur, P).long(), True)[:P]
     m = compute_point_descriptors(m, touched)
-
-    # -- 5. redundant-keyframe culling ---------------------------------------
     w = min(window, K)
     idx = torch.arange(K, device=dev)
     protect = (idx == 0) | (idx == 1) | (idx == ki)
@@ -1200,4 +1297,133 @@ def mapping_front(cam: PinholeCamera, m: MapState, ki: int, inv_sigma2_table, mi
     cov = best_covisible_ids(m, ki, w)
     protect = _mark_max(protect, cov.clamp(min=0), cov >= 0)
     m, _ = cull_keyframes(m, ki, protect)
-    return m
+    return map_fields(m, ("pt_desc", "kf_valid", "kf_obs_pt", "kf_parent", "kf_rel_R", "kf_rel_t"))
+
+
+def compose_mapping_front(run, cam: PinholeCamera, m: MapState, ki, inv_sigma2_table, min_kf_obs: float,
+                          *, scale_factor: float, n_levels: int, nn_tri: int, nn_fuse: int,
+                          fuse_hop: int, window: int) -> MapState:
+    """The LocalMapping epoch for new keyframe `ki` (a host int or a
+    1-element index tensor), each segment through `run(name, fn, static,
+    **tensors)` (call_segment, or StepGraphs.run), in LocalMapping::Run's
+    order:
+
+      map_head: the covisibility at the epoch's start, the neighbour list
+         and the deduped two-hop fuse list;
+      map_tri, once per 4 neighbours: triangulation (CreateNewMapPoints);
+         each keypoint takes the first good neighbour in list order, as a
+         new point there removes the keypoint from the later neighbours'
+         search;
+      map_insert: the new points inserted, recent-point culling
+         (MapPointCulling);
+      map_fuse, once per 4 directed pairs, then map_fuse_apply: fusion in
+         both directions (SearchInNeighbors), every pair matched against
+         one state, then one merge map and one scatter of the added
+         observations;
+      map_tail: the representative descriptors of the new keyframe's
+         points, redundant-keyframe culling (KeyFrameCulling).
+
+    Both lists' lengths are read to the host after the head (the one
+    device->host read), so that only the chunks holding pairs run: the JAX
+    package runs every slot of its static lists and disables the empty
+    ones, which changes nothing else. The chunks' last rows are padded and
+    masked, so every segment has one key whatever ki and the lengths."""
+    dev = m.kf_obs_pt.device
+    if not isinstance(ki, torch.Tensor):
+        ki = torch.full((1,), int(ki), dtype=torch.int64, device=dev)
+    nbs, pairs, counts, tri, fused = run(
+        "map_head", map_head_segment, dict(nn_tri=nn_tri, nn_fuse=nn_fuse, fuse_hop=fuse_hop),
+        m=map_fields(m, MAP_HEAD_FIELDS), ki=ki)
+    n_nb, n_ext = (int(n) for n in counts.cpu())  # the one read
+    c = _PAIRS_PER_CHUNK
+    geo = dict(cam=cam, scale_factor=scale_factor, n_levels=n_levels)
+    for i in range(0, n_nb, c):
+        tri = run("map_tri", tri_chunk_segment, geo, m=map_fields(m, TRI_MAP_FIELDS), ki=ki,
+                  kf_old=nbs[i:i + c], tri=tri, inv_sigma2_table=inv_sigma2_table)
+    part, cnt = run("map_insert", insert_cull_segment, dict(min_kf_obs=float(min_kf_obs)),
+                    m=map_fields(m, INSERT_MAP_FIELDS), ki=ki, tri=tri)
+    m = merge_fields(m, part)
+    for i in range(0, 2 * n_ext, c):
+        fused = run("map_fuse", fuse_chunk_segment, geo, m=map_fields(m, FUSE_MAP_FIELDS), cnt=cnt,
+                    pairs=pairs[i:i + c], fused=fused, inv_sigma2_table=inv_sigma2_table)
+    m = merge_fields(m, run("map_fuse_apply", fuse_apply_segment, {}, m=map_fields(m, FUSE_APPLY_FIELDS),
+                            fused=fused))
+    return merge_fields(m, run("map_tail", map_tail_segment, dict(window=window),
+                               m=map_fields(m, TAIL_MAP_FIELDS), ki=ki))
+
+
+def mapping_front(cam: PinholeCamera, m: MapState, ki, inv_sigma2_table, min_kf_obs: float, *,
+                  scale_factor: float, n_levels: int, nn_tri: int, nn_fuse: int, fuse_hop: int,
+                  window: int, run=call_segment) -> MapState:
+    """The LocalMapping epoch for new keyframe `ki`: compose_mapping_front's
+    segments through `run` (eagerly by default; the tracker's
+    map_graphs.run replays them)."""
+    return compose_mapping_front(run, cam, m, ki, inv_sigma2_table, min_kf_obs,
+                                 scale_factor=scale_factor, n_levels=n_levels, nn_tri=nn_tri,
+                                 nn_fuse=nn_fuse, fuse_hop=fuse_hop, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Keyframe insertion, the normals and point compaction as segments.
+# ---------------------------------------------------------------------------
+
+KF_INSERT_FIELDS = ("kf_R", "kf_t", "kf_valid", "kf_frame_id", "kf_kp_xy", "kf_kp_level", "kf_kp_angle",
+                    "kf_kp_desc", "kf_kp_valid", "kf_kp_uright", "kf_obs_pt", "kf_parent", "n_kf")
+NORMALS_FIELDS = ("kf_R", "kf_t", "kf_valid", "kf_obs_pt", "kf_kp_valid", "kf_kp_level", "pt_xyz",
+                  "pt_valid", "pt_ref_kf", "pt_normal", "pt_min_dist", "pt_max_dist")
+NORMALS_CHANGED = ("pt_normal", "pt_min_dist", "pt_max_dist")
+COMPACT_FIELDS = POINT_FIELDS[:-1] + ("kf_obs_pt",)
+
+
+def point_ranges(scale_factors: torch.Tensor, dist: torch.Tensor, level: torch.Tensor):
+    """MapPoint::UpdateNormalAndDepth's scale-invariance range (the
+    creation's 0.8 / 1.2 margins applied) at distance `dist` seen at octave
+    `level`; scale_factors (n_levels,)."""
+    sf = scale_factors[torch.clamp(level, 0, scale_factors.shape[0] - 1).long()]
+    max_d = dist * sf
+    min_d = max_d / scale_factors[-1]
+    return 0.8 * min_d, 1.2 * max_d
+
+
+def add_depth_points(cam: PinholeCamera, m: MapState, ki, feats: FrameFeatures, R, t,
+                     th_depth: float, scale_factors: torch.Tensor) -> MapState:
+    """Tracking::CreateNewKeyFrame's densification: a map point for each of
+    keyframe ki's (a host int or a 1-element index tensor) untracked
+    keypoints closer than th_depth."""
+    obs_kf = _row(m.kf_obs_pt, ki)
+    d = feats.depth
+    free = (obs_kf < 0) & feats.valid & (d > 0) & (d < th_depth)
+    Xc = unproject(cam, feats.xy, d)
+    Xw = se3_apply(*se3_inverse(R, t), Xc)
+    vecs = Xw - (-(R.T @ t))
+    normal = vecs / torch.clamp(torch.linalg.norm(vecs, dim=-1, keepdim=True), min=1e-9)
+    lo, hi = point_ranges(scale_factors, torch.linalg.norm(Xc, dim=-1), feats.level)
+    m, slots = insert_points(m, Xw, feats.desc, ki, free, normal, lo, hi)
+    new_obs = torch.where(free & (slots >= 0), slots, obs_kf).to(m.kf_obs_pt.dtype)
+    row = ki.reshape(1).long() if isinstance(ki, torch.Tensor) else torch.full(
+        (1,), ki, dtype=torch.int64, device=new_obs.device)
+    return m._replace(kf_obs_pt=m.kf_obs_pt.index_put((row,), new_obs[None]))
+
+
+def kf_insert_segment(cam: PinholeCamera, m: MapState, feats: FrameFeatures, R, t, frame_id, obs, ki,
+                      scale_factors, *, recycled: bool, depth: bool, th_depth: float) -> MapState:
+    """Keyframe insertion as a segment: the keyframe at the watermark, or
+    with `recycled` at slot ki (the watermark kept), frame_id and ki
+    1-element tensors; for a depth sensor its close untracked keypoints as
+    new points (add_depth_points). Returns the changed fields."""
+    m, _ = insert_keyframe(m, feats, R, t, frame_id, obs, slot=ki if recycled else None)
+    if not depth:
+        return map_fields(m, KF_INSERT_FIELDS)
+    m = add_depth_points(cam, m, ki, feats, R, t, th_depth, scale_factors)
+    return map_fields(m, KF_INSERT_FIELDS + POINT_FIELDS)
+
+
+def normals_segment(m: MapState, scale_factors) -> MapState:
+    """update_point_normals as a segment: the changed fields."""
+    return map_fields(update_point_normals(m, scale_factors), NORMALS_CHANGED)
+
+
+def compact_segment(m: MapState):
+    """compact_point_slots as a segment: (the changed fields, old_to_new)."""
+    m, old_to_new = compact_point_slots(m)
+    return map_fields(m, POINT_FIELDS + ("kf_obs_pt",)), old_to_new

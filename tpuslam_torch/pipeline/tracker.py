@@ -31,13 +31,19 @@ before it returns, and what it made is marked with the reading stream
 
 The device is the tracker's (`device`, "cuda" unless the caller asks for
 the CPU). The steady-state frame step, the depth sensors' front ends,
-relocalization (all but the BoW query, the brute-force match and EPnP's
-cuSOLVER calls) and localization mode's visual odometry go through
-`StepGraphs` (pipeline/graphs.py): on a card each segment is a captured
-CUDA graph, replayed at each later call; on the CPU the segments run on
-the same static buffers. A steady-state frame makes one packed
-device->host fetch beyond the step's own verdict read; keyframe slots are
-assigned on the host, so insertion never reads the device watermark.
+keyframe insertion, relocalization (all but the BoW query, the
+brute-force match and EPnP's cuSOLVER calls) and localization mode's
+visual odometry go through `StepGraphs` (pipeline/graphs.py;
+`tracker.graphs`): on a card each segment is a captured CUDA graph,
+replayed at each later call; on the CPU the segments run on the same
+static buffers. The keyframe job (mapping_front, both local-BA chunks,
+the normals, point compaction) goes through a second StepGraphs,
+`tracker.map_graphs`, which only the thread running the job uses; the
+global BA and the loop stage stay eager. `tracker.map_graphs.run =
+steps.call_segment` runs the job eagerly. A steady-state frame makes one
+packed device->host fetch beyond the step's own verdict read; keyframe
+slots are assigned on the host, so insertion never reads the device
+watermark.
 Random hypotheses (two-view and PnP RANSAC) come from a torch.Generator
 the tracker owns, seeded from its config, through `_draw_picks`.
 """
@@ -60,7 +66,6 @@ from tpuslam_torch.mapstate.core import (
     FrameFeatures,
     MapState,
     _nanmedian_last,
-    compact_point_slots,
     covisibility_weights,
     insert_keyframe,
     insert_points,
@@ -198,10 +203,17 @@ class Tracker:
         self.stage_sync = False
         self.metrics = Metrics()
         # graph_replays: steady-state frames whose step ran as graph
-        # replays; graph_captures: graphs captured.
+        # replays; graph_captures: graphs captured. map_jobs: keyframe
+        # jobs (_mapping_compute); map_graph_replays: those whose segments
+        # all replayed; map_graph_captures: the mapping graphs captured.
         self.stats = {"dispatches": 0, "syncs": 0, "fused_frames": 0, "slow_frames": 0,
-                      "graph_replays": 0, "graph_captures": 0}
+                      "graph_replays": 0, "graph_captures": 0, "map_jobs": 0,
+                      "map_graph_replays": 0, "map_graph_captures": 0}
+        # The tracking thread's segments (frame step, keyframe insertion,
+        # relocalization), and the mapping job's (on the mapping thread
+        # under async_mapping): one StepGraphs per thread.
         self.graphs = StepGraphs(self.device, self.metrics)
+        self.map_graphs = StepGraphs(self.device, self.metrics, stage="map.capture")
         # Trajectory: (frame_id, ref_kf, R_rel, t_rel, lost), resolved against
         # the optimized keyframe poses at export.
         self.trajectory = []
@@ -250,7 +262,7 @@ class Tracker:
         synchronously and captures its own."""
         state = dict(self.__dict__)
         for k in ("_mapping_pool", "_gba_pool", "_mapping_future", "_gba_future", "_map_stream",
-                  "_gba_stream", "_remote_mapper", "_mapping_interrupt", "graphs"):
+                  "_gba_stream", "_remote_mapper", "_mapping_interrupt", "graphs", "map_graphs"):
             state[k] = None
         return state
 
@@ -258,6 +270,7 @@ class Tracker:
         self.__dict__.update(state)
         self._mapping_interrupt = threading.Event()
         self.graphs = StepGraphs(self.device, self.metrics)
+        self.map_graphs = StepGraphs(self.device, self.metrics, stage="map.capture")
 
     def _new_loop_closer(self, voc) -> LoopCloser:
         lc = LoopCloser(self.cfg.max_keyframes, fix_scale=False, voc=voc)
@@ -407,7 +420,7 @@ class Tracker:
         t2 = res.t / med
 
         r2v = X - (-(res.R.T @ t2))
-        lo, hi = self._point_ranges(torch.linalg.norm(r2v, dim=-1), cur.level[idx])
+        lo, hi = steps.point_ranges(self.scale_factors, torch.linalg.norm(r2v, dim=-1), cur.level[idx])
         m, slots = insert_points(
             self.map, X, cur.desc[idx], 1, good,  # keyframe 1 is their reference
             r2v / torch.clamp(torch.linalg.norm(r2v, dim=-1, keepdim=True), min=1e-9), lo, hi)
@@ -476,17 +489,20 @@ class Tracker:
                                                cg_iters=self.cfg.local_ba_cg_iters)
 
     def _local_ba(self, m: MapState, center_kf: int, iters: int = 8) -> MapState:
-        """Local BA around keyframe center_kf: steps.local_bundle_adjustment
-        on one device; with a mesh the same covisibility window over all
-        K*N observation slots, solved point-sharded, then the same chi2
-        outlier detach (5.991 mono / 7.815 stereo)."""
+        """Local BA around keyframe center_kf: steps.local_ba_segment through
+        the mapping graphs on one device; with a mesh (eager) the same
+        covisibility window over all K*N observation slots, solved
+        point-sharded, then the same chi2 outlier detach (5.991 mono /
+        7.815 stereo)."""
         cfg = self.cfg
         if self._ba_mesh is None:
-            return steps.local_bundle_adjustment(
-                cfg.cam, m, center_kf, self.inv_sigma2, window=cfg.local_ba_window,
-                n_levels=cfg.orb.n_levels, iters=iters,
-                max_edges=cfg.local_ba_max_edges or 32 * cfg.orb.n_features,
-                active_max=cfg.local_ba_active_max)
+            return steps.merge_fields(m, self.map_graphs.run(
+                "local_ba", steps.local_ba_segment,
+                dict(cam=cfg.cam, window=cfg.local_ba_window, n_levels=cfg.orb.n_levels, iters=iters,
+                     max_edges=cfg.local_ba_max_edges or 32 * cfg.orb.n_features,
+                     active_max=cfg.local_ba_active_max),
+                m=steps.map_fields(m, steps.LOCAL_BA_FIELDS), center_kf=self._index(center_kf),
+                inv_sigma2_table=self.inv_sigma2))
         K, N = m.kf_obs_pt.shape
         kfi, pti, uvr, has, fixed_kf, fixed_pt = steps.build_local_ba_problem(m, center_kf, cfg.local_ba_window)
         lvl = torch.clamp(m.kf_kp_level.reshape(-1), 0, self.inv_sigma2.shape[0] - 1).long()
@@ -776,11 +792,18 @@ class Tracker:
             if slot is None:
                 return  # full, nothing recyclable
         ki = self._n_kf_host if slot is None else slot
-        m, _ = insert_keyframe(self.map, feats, R, t, frame_id, obs, slot=slot)
+        # Insertion (and a depth sensor's new points) as a segment through
+        # the tracking thread's graphs: the frame id and slot as tensors.
+        fields = steps.KF_INSERT_FIELDS + (steps.POINT_FIELDS if self._depth_mode else ())
+        m = steps.merge_fields(self.map, self.graphs.run(
+            "kf_insert", steps.kf_insert_segment,
+            dict(cam=self.cfg.cam, recycled=slot is not None, depth=self._depth_mode,
+                 th_depth=float(self._th_depth)),
+            m=steps.map_fields(self.map, fields), feats=feats, R=R, t=t,
+            frame_id=torch.full((1,), frame_id, dtype=torch.int32, device=self.device), obs=obs,
+            ki=self._index(ki), scale_factors=self.scale_factors))
         if slot is None:
             self._n_kf_host += 1
-        if self._depth_mode:
-            m = self._add_depth_points(m, ki, feats, R, t)
         self.metrics.inc("frames.keyframe")
         if self._mapping_pool is not None:
             # Publish the snapshot and hand the mapping work to the
@@ -950,22 +973,19 @@ class Tracker:
         global BA merged first, point-slot compaction near capacity (which
         makes a running global BA's snapshot stale), mapping_front, local BA
         in two chunks (the second skipped once InterruptBA is signalled),
-        the normals, then loop closing when it is on."""
-        cfg = self.cfg
+        the normals, then loop closing when it is on. Everything but the
+        global BA's merge and the loop stage runs as segments through
+        map_graphs (replayed graphs on a card); the reads are the
+        compaction trigger and mapping_front's list lengths."""
+        g = self.map_graphs
+        runs, replays = g.runs, g.replays
         m = self._poll_gba(m)
         if int(m.n_pt) >= int(0.95 * m.capacity_pt):
-            m, self._pending_pt_remap = compact_point_slots(m)
-            self._gba_generation += 1
+            with self._stage("map.compact"):
+                m = self._compact(m)
         self._mapping_interrupt.clear()
-        # Neighbours and the culling's observation bar: 10 and 2 for a depth
-        # sensor, 20 and 3 for a monocular map.
-        nn_auto = 10 if self._depth_mode else 20
         with self._stage("map.front"):
-            m = steps.mapping_front(
-                cfg.cam, m, ki, self.inv_sigma2, 2.0 if self._depth_mode else 3.0,
-                scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
-                nn_tri=cfg.tri_neighbors or nn_auto, nn_fuse=cfg.fuse_neighbors or nn_auto,
-                fuse_hop=cfg.fuse_second_hop, window=cfg.local_ba_window)
+            m = self._mapping_front(m, ki)
         with self._stage("map.local_ba1"):
             m = self._local_ba(m, ki, iters=4)
         if self._mapping_interrupt.is_set():
@@ -974,11 +994,41 @@ class Tracker:
             with self._stage("map.local_ba2"):
                 m = self._local_ba(m, ki, iters=4)
         with self._stage("map.normals"):
-            m = update_point_normals(m, self.scale_factors)
+            m = self._normals(m)
+        self.stats["map_jobs"] += 1
+        self.stats["map_graph_replays"] += g.runs > runs and g.replays - replays == g.runs - runs
+        self.stats["map_graph_captures"] = g.captures
         if self.loop_closer is not None:
             with self._stage("map.loop"):
                 m = self._close_loops(m, ki)
         return m
+
+    def _mapping_front(self, m: MapState, ki: int) -> MapState:
+        """steps.mapping_front through the mapping graphs. Neighbours and
+        the culling's observation bar: 10 and 2 for a depth sensor, 20 and
+        3 for a monocular map."""
+        cfg = self.cfg
+        nn_auto = 10 if self._depth_mode else 20
+        return steps.mapping_front(
+            cfg.cam, m, self._index(ki), self.inv_sigma2, 2.0 if self._depth_mode else 3.0,
+            scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
+            nn_tri=cfg.tri_neighbors or nn_auto, nn_fuse=cfg.fuse_neighbors or nn_auto,
+            fuse_hop=cfg.fuse_second_hop, window=cfg.local_ba_window, run=self.map_graphs.run)
+
+    def _normals(self, m: MapState) -> MapState:
+        """steps.normals_segment through the mapping graphs."""
+        return steps.merge_fields(m, self.map_graphs.run(
+            "normals", steps.normals_segment, {}, m=steps.map_fields(m, steps.NORMALS_FIELDS),
+            scale_factors=self.scale_factors))
+
+    def _compact(self, m: MapState) -> MapState:
+        """Point-slot compaction (steps.compact_segment through the mapping
+        graphs); the remap is kept for the tracker's own references, and a
+        running global BA's snapshot goes stale."""
+        part, self._pending_pt_remap = self.map_graphs.run(
+            "compact", steps.compact_segment, {}, m=steps.map_fields(m, steps.COMPACT_FIELDS))
+        self._gba_generation += 1
+        return steps.merge_fields(m, part)
 
     def _close_loops(self, m: MapState, ki: int) -> MapState:
         """The loop-closing hand-off of keyframe ki (LocalMapping -> LoopClosing).
@@ -1236,15 +1286,6 @@ class Tracker:
                                dict(cam=cfg.cam, orb=cfg.orb, depth_map_factor=cfg.depth_map_factor),
                                img=img, depth_map=depth_map)
 
-    def _point_ranges(self, dist: torch.Tensor, level: torch.Tensor):
-        """MapPoint::UpdateNormalAndDepth's scale-invariance range (the
-        creation's 0.8 / 1.2 margins applied) at distance `dist` seen at
-        octave `level`."""
-        sf = self.scale_factors[torch.clamp(level, 0, self.cfg.orb.n_levels - 1).long()]
-        max_d = dist * sf
-        min_d = max_d / self.scale_factors[-1]
-        return 0.8 * min_d, 1.2 * max_d
-
     def _initialize_with_depth(self, feats: FrameFeatures, frame_id: int) -> bool:
         """StereoInitialization: one keyframe at the origin, a map point
         unprojected from every keypoint with depth. Needs half the feature
@@ -1257,7 +1298,7 @@ class Tracker:
         X = unproject(self.cfg.cam, feats.xy, feats.depth)  # camera frame = world
         n = feats.xy.shape[0]
         normal = X / torch.clamp(torch.linalg.norm(X, dim=-1, keepdim=True), min=1e-9)
-        lo, hi = self._point_ranges(torch.linalg.norm(X, dim=-1), feats.level)
+        lo, hi = steps.point_ranges(self.scale_factors, torch.linalg.norm(X, dim=-1), feats.level)
         m, slots = insert_points(self.map, X, feats.desc, 0, has_d, normal, lo, hi)
         obs = torch.where(has_d, slots, -1).to(torch.int32)
         obs_p = torch.cat([obs, obs.new_full((self.kp_capacity - n,), -1)])
@@ -1275,21 +1316,6 @@ class Tracker:
         self._n_kf_host = 1
         self._record_pose(frame_id, eye, zero)
         return True
-
-    def _add_depth_points(self, m: MapState, ki: int, feats_p: FrameFeatures, R, t) -> MapState:
-        """Tracking::CreateNewKeyFrame's densification: a map point for each
-        of keyframe ki's untracked keypoints closer than th_depth."""
-        obs_kf = m.kf_obs_pt[ki]
-        d = feats_p.depth
-        free = (obs_kf < 0) & feats_p.valid & (d > 0) & (d < self._th_depth)
-        Xc = unproject(self.cfg.cam, feats_p.xy, d)
-        Xw = se3_apply(*se3_inverse(R, t), Xc)
-        vecs = Xw - (-(R.T @ t))
-        normal = vecs / torch.clamp(torch.linalg.norm(vecs, dim=-1, keepdim=True), min=1e-9)
-        lo, hi = self._point_ranges(torch.linalg.norm(Xc, dim=-1), feats_p.level)
-        m, slots = insert_points(m, Xw, feats_p.desc, ki, free, normal, lo, hi)
-        new_obs = torch.where(free & (slots >= 0), slots, obs_kf).to(m.kf_obs_pt.dtype)
-        return m._replace(kf_obs_pt=_set(m.kf_obs_pt, ki, new_obs))
 
     def reset(self):
         """Clear the map and restart at NO_IMAGES_YET (System::Reset): the

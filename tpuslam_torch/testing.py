@@ -28,8 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpuslam_torch.geometry.camera import PinholeCamera, project, unproject
-from tpuslam_torch.geometry.se3 import se3_apply, se3_inverse, so3_exp
+from tpuslam_torch.geometry.camera import PinholeCamera, project
+from tpuslam_torch.geometry.se3 import se3_apply, so3_exp
 from tpuslam_torch.geometry.sim3 import sim3_compose
 from tpuslam_torch.mapstate.core import (
     FrameFeatures,
@@ -44,7 +44,7 @@ from tpuslam_torch.ops.image import gaussian_blur
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb, extract_orb_batched
 from tpuslam_torch.optim.ba import BAProblem
 from tpuslam_torch.optim.pose_graph import Sim3Edges, make_relative
-from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, fused_track_frame_image
+from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, add_depth_points, fused_track_frame_image
 from tpuslam_torch.pipeline.tracker import pad_feats
 
 
@@ -279,28 +279,17 @@ def add_depth_keyframe(m: MapState, cam: PinholeCamera, feats_p: FrameFeatures, 
                        R, t, frame_id: int, ki: int, scale_factors):
     """Insert keyframe slot `ki` (the next free one) at pose (R, t) with
     observations obs_p, add a map point for every untracked keypoint with
-    depth (Tracker._add_depth_points, without its depth threshold), then
+    depth (steps.add_depth_points, without its depth threshold), then
     refresh the normals and the new points' descriptors. Returns
     (map, the keyframe's observations)."""
     m, _ = insert_keyframe(m, feats_p, R, t, frame_id, obs_p)
+    m = add_depth_points(cam, m, ki, feats_p, R, t, float("inf"), scale_factors)
     P = m.capacity_pt
-    d = feats_p.depth
-    free = (obs_p < 0) & feats_p.valid & (d > 0)
-    Xc = unproject(cam, feats_p.xy, d)
-    Xw = se3_apply(*se3_inverse(R, t), Xc)
-    dist = torch.linalg.norm(Xc, dim=-1)
-    max_d = dist * scale_factors[torch.clamp(feats_p.level, 0, scale_factors.shape[0] - 1).long()]
-    min_d = max_d / scale_factors[-1]
-    vecs = Xw - (-(R.T @ t))
-    normal = vecs / torch.clamp(torch.linalg.norm(vecs, dim=-1, keepdim=True), min=1e-9)
-    m, slots = insert_points(m, Xw, feats_p.desc, ki, free, normal, 0.8 * min_d, 1.2 * max_d)
-    created = free & (slots >= 0)
-    obs = torch.where(created, slots, obs_p)
-    kf_obs = m.kf_obs_pt.clone()
-    kf_obs[ki] = obs
-    m = update_point_normals(m._replace(kf_obs_pt=kf_obs), scale_factors)
+    obs = m.kf_obs_pt[ki]
+    created = (obs_p < 0) & (obs >= 0)
+    m = update_point_normals(m, scale_factors)
     new = torch.zeros(P + 1, dtype=torch.bool, device=obs.device).index_fill(
-        0, torch.where(created, slots, P).long(), True)[:P]
+        0, torch.where(created, obs, P).long(), True)[:P]
     return compute_point_descriptors(m, new), obs
 
 
