@@ -50,7 +50,12 @@ Phases, any failure exits non-zero:
      keyframe frame by stage over the jobs that captured nothing; each fails
      unless every keyframe job replayed every segment (a capture replays at
      once), with at most 9 mapping captures (the mapping process: the
-     worker's counts);
+     worker's counts). Each also prints its gba_iters, gba_graph_replays
+     and gba_graph_captures (the global BA's LM iterations, each one
+     optim/ba.py's lm_step replayed) and fails unless every LM iteration
+     replayed; the mono and async mono phases run the session's initial
+     global BA again from its input both ways (torch.equal, ms, reads,
+     host API calls per LM iteration under 50, no new capture);
   5. times: CUDA-event medians of 20 runs after warm-up, in turns, for the
      kernels against their plain versions (and gather_patches against one
      aten::index call) at B=4 and B=1, per call and as the device's time
@@ -152,12 +157,18 @@ Phases, any failure exits non-zero:
      or drift must close none, and the closing keyframe rerun on the CPU
      from the card's state just before it must pick the same candidate and
      land within 1 cm and 0.1 deg of the card's corrected poses; the
-     closing keyframe rerun on the card with its CG graphed (blocks of 10
-     iterations, one CUDA graph) and eager, twice each in turns, the
-     corrected map torch.equal. Prints ms per keyframe without a candidate,
-     the closing keyframe by stage (Sim3, fusion, essential graph with its
-     GN and CG iterations, graph and launches, global BA), reads per
-     keyframe and peak memory.
+     closing keyframe rerun on the card from its snapshot graphed (the
+     essential graph's GN steps and CG blocks through the closer's
+     StepGraphs, the global BA's LM iterations through the tracker's
+     map_graphs) and eager, twice each in turns, the second graphed run on
+     the first's graphs: every MapState field and the point remap
+     torch.equal, the reads equal, the second graphed run capturing
+     nothing, host API calls under 300 per GN step and under 50 per LM
+     iteration, or the run fails. Prints ms per keyframe without a
+     candidate, the closing keyframe by stage (Sim3, fusion, the essential
+     graph with its GN and CG iterations, the global BA) both ways, the
+     captures, the pools' and buffers' bytes, one GN step profiled, reads
+     per keyframe and peak memory.
   facade: the mono session's map (saved at the end of phase 6 with
      System.save_map, the JAX package's npz format) loaded into a fresh
      System on the card (and on the CPU, bit-equal), then 20 frames of the mono path localized against it: the
@@ -182,8 +193,9 @@ Phases, any failure exits non-zero:
      chunks skipped, synchronising calls per thread, peak memory; the
      async global BA on the 240-keyframe loop map at the default
      capacities (no drift, points moved by 2 cm): _schedule_gba returns at
-     once, the merge halves the mean reprojection error, a superseded run
-     leaves the map unchanged; 30 stereo pairs at the stereo phase's point
+     once, the job's 10 LM iterations all replay tracker.gba_graphs, the
+     merge halves the mean reprojection error, a superseded run aborts at a
+     chunk boundary and leaves the map unchanged; 30 stereo pairs at the stereo phase's point
      with mapping_process on the same card (the stereo gates, the worker's
      BoW rows in the tracker's loop closer, the worker importing no jax,
      bytes and ms per job for the copies, pickling and the pipe, the
@@ -1158,9 +1170,16 @@ def graph_report(name: str, tr) -> list:
         f"capture and instantiation {_ms(cap_ms)} each, {g.replays} segment replays, kernel launches "
         f"by replay {g.replayed_launches}; graph pool "
         f"{g.pool_bytes() / 2**20:.1f} MiB, static buffers {g.buffer_bytes() / 2**20:.1f} MiB")
+    init = tr.metrics.timer.samples.get("init.global_ba", [])
+    log(f"  {name} global BA: gba_iters {st['gba_iters']}, gba_graph_replays {st['gba_graph_replays']}, "
+        f"gba_graph_captures {st['gba_graph_captures']}; the initial global BA (its capture included) "
+        f"{_ms([v * 1e3 for v in init])}")
+    bad = []
     if st["graph_replays"] != st["dispatches"]:
-        return [f"{name}: {st['graph_replays']} graph replays for {st['dispatches']} steady-state frames"]
-    return []
+        bad.append(f"{name}: {st['graph_replays']} graph replays for {st['dispatches']} steady-state frames")
+    if st["gba_graph_replays"] != st["gba_iters"]:
+        bad.append(f"{name}: {st['gba_graph_replays']} global-BA replays for {st['gba_iters']} LM iterations")
+    return bad
 
 
 def watch_map_jobs(tr) -> list:
@@ -1196,6 +1215,91 @@ def keep_jobs_on_host(tr, jobs) -> dict:
 
     tr._mapping_compute = wrapped
     return kept
+
+
+def keep_first_global_ba(tr) -> dict:
+    """Wrap the tracker's global BA so that its first call's input map is
+    kept on the host (numpy) with its iteration count: {"map", "iters"}."""
+    kept = {}
+    orig = tr._global_ba
+
+    def wrapped(m, iters=20, graphs=None):
+        if not kept:
+            kept.update(map=map_to_numpy(m), iters=iters)
+        return orig(m, iters=iters, graphs=graphs)
+
+    tr._global_ba = wrapped
+    return kept
+
+
+def profiled(fn) -> dict:
+    """One call of fn under torch.profiler: {"wall": ms, "calls": {host API
+    call: count}, "device_ms": the device's own events summed}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    return dict(wall=wall, calls={e.key: e.count for e in ev if e.key in API_CALLS},
+                device_ms=sum(_dev_time(e) for e in ev if e.device_type == DeviceType.CUDA) / 1e3)
+
+
+def per_iteration(call) -> dict:
+    """One iteration of call(iters), as call(2) under the profiler less
+    call(1) (the set-up around the iterations cancels): {"calls": host API
+    calls by name, "n": their sum, "device_ms"}."""
+    two, one = profiled(lambda: call(2)), profiled(lambda: call(1))
+    calls = {k: two["calls"].get(k, 0) - one["calls"].get(k, 0)
+             for k in sorted(set(two["calls"]) | set(one["calls"]))}
+    return dict(calls=calls, n=sum(calls.values()), device_ms=two["device_ms"] - one["device_ms"])
+
+
+def global_ba_both_ways(name: str, tr, kept: dict, smi: str, full: bool = True) -> list:
+    """The session's initial global BA again from its input (kept by
+    keep_first_global_ba), through the tracking thread's graphs (replays:
+    the session captured them) and eagerly, 2 runs each in turns: the
+    poses and points torch.equal, wall ms, reads; with `full` also host API
+    calls and device ms per LM iteration, the graphed call's device ms and
+    each way's peak memory. Returns the failures."""
+    m = map_to_torch(kept["map"], "cuda")
+    iters = kept["iters"]
+    captures = tr.graphs.captures
+    eager_graphs = StepGraphs("cuda")
+    eager_graphs.run = steps.call_segment
+    ways = (("eager", eager_graphs), ("graphed", tr.graphs))
+    res = both_ways(lambda: None, lambda: tr._global_ba(m, iters=iters, graphs=tr.graphs), lambda: (),
+                    [tr.graphs], reps=2)
+    reads = {w: count_syncs(lambda g=g: tr._global_ba(m, iters=iters, graphs=g))[1] for w, g in ways}
+    log(f"  {name} initial global BA again from its input ({iters} LM iterations over "
+        f"{m.capacity_kf * m.kf_obs_pt.shape[1]} edge slots, 2 runs each in turns): graphed against eager "
+        f"{'torch.equal' if res['equal'] else 'DIFFERENT'} (poses, points); eager {_ms(res['ms']['eager'])}, "
+        f"graphed {_ms(res['ms']['graphed'])} (wall, card synchronized); device->host reads eager "
+        f"{len(reads['eager'])}, graphed {len(reads['graphed'])} (at {reads['graphed']}); new captures "
+        f"{tr.graphs.captures - captures}")
+    bad = []
+    if not res["equal"]:
+        bad.append(f"{name}: the graphed global BA differs from the eager one")
+    if len(reads["graphed"]) > len(reads["eager"]):
+        bad.append(f"{name}: the global BA reads more graphed")
+    if full:
+        it = {w: per_iteration(lambda k, g=g: tr._global_ba(m, iters=k, graphs=g)) for w, g in ways}
+        whole = profiled(lambda: tr._global_ba(m, iters=iters, graphs=tr.graphs))
+        peak = {w: peak_gib(lambda g=g: tr._global_ba(m, iters=iters, graphs=g))[1] for w, g in ways}
+        log(f"  one LM iteration of it: host API calls eager {it['eager']['n']} {it['eager']['calls']}, graphed "
+            f"{it['graphed']['n']} {it['graphed']['calls']}; device time eager {it['eager']['device_ms']:.3f} ms, "
+            f"graphed {it['graphed']['device_ms']:.3f} ms; the graphed call under the profiler: device time "
+            f"{whole['device_ms']:.3f} ms of {whole['wall']:.3f} ms wall, {sum(whole['calls'].values())} host "
+            f"API calls; peak memory eager {peak['eager']:.3f} GiB, graphed {peak['graphed']:.3f} GiB; the "
+            f"global BA's static buffers {sum(b.numel() * b.element_size() for k, b in tr.graphs._buffers.items() if k[0].startswith(('prob', 'plans'))) / 2**20:.1f} MiB")
+        if not it["graphed"]["n"] < 50:
+            bad.append(f"{name}: {it['graphed']['n']} host API calls per graphed LM iteration")
+    if tr.graphs.captures != captures:
+        bad.append(f"{name}: the global BA captured again")
+    return bad
 
 
 def map_graph_report(name: str, tr, recs: list) -> list:
@@ -1281,6 +1385,7 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     host_jobs = keep_jobs_on_host(tr, set(MAP_GRAPH_MONO_JOBS))
     map_recs = watch_map_jobs(tr)
     loop_reads = watch_loop_stage(tr)
+    init_gba = keep_first_global_ba(tr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fast_nms.launches = 0
@@ -1367,7 +1472,11 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     bad += map_graph_report("mono", tr, session_recs)
     if bad:
         raise AssertionError(f"mono SLAM: {bad}")
-    del tr._close_loops  # the instance's own method again
+    del tr._close_loops, tr._global_ba  # the instance's own methods again
+    tr.stage_sync = False
+    bad = global_ba_both_ways("mono", tr, init_gba, smi)
+    if bad:
+        raise AssertionError(f"mono SLAM: {bad}")
 
     # Reads per frame on the finished map (no keyframes: localization mode).
     tr.stage_sync = False
@@ -2150,6 +2259,15 @@ def phase_loop(smi: str, device: str = "cuda") -> dict:
     build_s = time.perf_counter() - t0
     cfg = TrackerConfig(cam=LOOP_CAM, max_keyframes=K, max_points=P, enable_loop_closing=False)
     ba = Tracker(cfg, device=device)  # its global BA serves the closure
+    gba_inputs = []
+    gba = ba._schedule_gba
+
+    def keep_gba(mm, iters=10):
+        if not gba_inputs:
+            gba_inputs.append(mm)
+        return gba(mm, iters=iters)
+
+    ba._schedule_gba = keep_gba
     voc = Vocabulary.load(DEFAULT_VOCAB_PATH, device=device)
     lc = LoopCloser(K, fix_scale=False, voc=voc)
     lc.stage_sync = True
@@ -2211,63 +2329,102 @@ def phase_loop(smi: str, device: str = "cuda") -> dict:
             f"fusion {st['loop.fuse'][-1] * 1e3:.3f} ms, essential graph {st['loop.essential_graph'][-1] * 1e3:.3f} ms "
             f"({pg['n_live']} live keyframes, {pg['n_edges']} edges, 15 GN iterations, CG iterations per GN "
             f"{cg}, {pg.get('reads', 0)} CG reads), global BA {st['loop.global_ba'][-1] * 1e3:.3f} ms")
-        cgg = pg.get("cg_graph", {})
-        cap_ms = ", ".join(f"{c['capture_ms'] + c['instantiate_ms']:.1f} ms, {c['kernel_nodes']} kernel nodes"
-                           for c in cgg.get("captured", []))
-        log(f"  its CG in blocks of {pose_graph.CG_CHECK_EVERY} iterations, one graph: "
-            f"{cgg.get('captures', 0)} capture ({cap_ms}), {cgg.get('replays', 0)} replays, graph pool "
-            f"{cgg.get('pool_bytes', 0) / 2**20:.1f} MiB, released with the call")
-        # One GN iteration both ways: the graphed one under the profiler
-        # (each of the 15 runs the same CG length here), host API calls.
+        pgg = pg.get("graph", {})
+        log(f"  its GN steps and CG blocks through the closer's StepGraphs (blocks of "
+            f"{pose_graph.CG_CHECK_EVERY} CG iterations): {pgg.get('captures', 0)} captures "
+            f"({captures_report(lc.graphs)}), {pgg.get('replays', 0)} replays, graph pool "
+            f"{pgg.get('pool_bytes', 0) / 2**20:.1f} MiB, static buffers {lc.graphs.buffer_bytes() / 2**20:.1f} "
+            f"MiB; its global BA through the tracker's map_graphs: {captures_report(ba.map_graphs)}, "
+            f"gba_iters {ba.stats['gba_iters']}, gba_graph_replays {ba.stats['gba_graph_replays']}, pool "
+            f"{ba.map_graphs.pool_bytes() / 2**20:.1f} MiB, static buffers "
+            f"{ba.map_graphs.buffer_bytes() / 2**20:.1f} MiB")
+        if ba.stats["gba_graph_replays"] != ba.stats["gba_iters"]:
+            bad.append(f"the closure's global BA replayed {ba.stats['gba_graph_replays']} of "
+                       f"{ba.stats['gba_iters']} LM iterations")
+        # One GN step replayed (the closure captured it) under the
+        # profiler; host API calls and device time of one GN step and one
+        # LM iteration both ways: a solve at 2 GN steps less one at 1, the
+        # global BA at 2 LM iterations less 1 (the set-up cancels).
         a, kw = graphs[-1]
-        wall, n_launch, dev_us, top = profile_call(lambda: solve(*a, **dict(kw, iters=1)))
-        log(f"  one GN iteration of the essential graph replayed under the profiler (the closure ran "
+        wall, n_launch, dev_us, top = profile_call(lambda: solve(*a, **dict(kw, iters=1, run=lc.graphs.run)))
+        log(f"  one GN step of the essential graph replayed under the profiler (the closure ran "
             f"{kw['iters']}): {n_launch} kernel launches, device time {dev_us / 1e3:.3f} ms of "
             f"{wall:.3f} ms wall; most device time:")
         log_top(top)
-        gn = {w: api_calls(lambda r=r: solve(*a, **dict(kw, iters=1, run=r)))
-              for w, r in (("eager", steps.call_segment), ("graphed", None))}
-        log(f"  host API calls of one GN iteration: eager {sum(gn['eager'].values())} {gn['eager']}, "
-            f"graphed {sum(gn['graphed'].values())} {gn['graphed']}")
+        eager_graphs = StepGraphs(device)
+        eager_graphs.run = steps.call_segment
+        gn = {w: per_iteration(lambda k, r=r: solve(*a, **dict(kw, iters=k, run=r)))
+              for w, r in (("eager", steps.call_segment), ("graphed", lc.graphs.run))}
+        m_gba = gba_inputs[0]
+        lm = {w: per_iteration(lambda k, g=g: ba._global_ba(m_gba, iters=k, graphs=g))
+              for w, g in (("eager", eager_graphs), ("graphed", ba.map_graphs))}
+        peak = {w: peak_gib(lambda g=g: ba._global_ba(m_gba, iters=10, graphs=g))[1]
+                for w, g in (("eager", eager_graphs), ("graphed", ba.map_graphs))}
+        n_gn, n_lm = ({w: d[w]["n"] for w in d} for d in (gn, lm))
+        log(f"  one GN step: host API calls eager {n_gn['eager']} {gn['eager']['calls']}, graphed "
+            f"{n_gn['graphed']} {gn['graphed']['calls']}; device time eager {gn['eager']['device_ms']:.3f} ms, "
+            f"graphed {gn['graphed']['device_ms']:.3f} ms")
+        log(f"  one LM iteration of the closure's global BA: host API calls eager {n_lm['eager']} "
+            f"{lm['eager']['calls']}, graphed {n_lm['graphed']} {lm['graphed']['calls']}; device time eager "
+            f"{lm['eager']['device_ms']:.3f} ms, graphed {lm['graphed']['device_ms']:.3f} ms; the closure's "
+            f"global BA (10 iterations) peak memory eager {peak['eager']:.3f} GiB, graphed {peak['graphed']:.3f} GiB")
+        if not (n_gn["graphed"] < 300 and n_lm["graphed"] < 50):
+            bad.append(f"host API calls per graphed GN step {n_gn['graphed']}, per LM iteration {n_lm['graphed']}")
         if kc not in snaps:
             bad.append(f"closed at keyframe {kc}, before the revisit")
         else:
             m_snap, lc_cpu = snaps[kc]
             # The same keyframe again on the card from the same state, warm
-            # (the first closure pays the solvers' first calls), its CG
-            # graphed (the default) and eager, in turns: the corrected map
-            # torch.equal.
-            warm = {}
+            # (the first closure paid the solvers' first calls), graphed
+            # and eager in turns: the essential graph through one
+            # StepGraphs (the first graphed run's copy of the closer
+            # captures into a fresh one; the second's copy is handed it and
+            # must only replay), the global BA through ba.map_graphs.
+            warm, lc_graphs = {}, None
             for way in ("graphed", "eager", "eager", "graphed"):
                 lc_warm = lc_cpu.to(device)
                 lc_warm.stage_sync = True
                 if way == "eager":
                     lc_warm.cg_run = steps.call_segment
+                elif lc_graphs is not None:
+                    lc_warm.graphs = lc_graphs
+                caps = (lc_graphs.captures if lc_graphs is not None else 0, ba.map_graphs.captures)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                (m_w, c_w), sites = count_syncs(lambda: lc_warm.on_keyframe(m_snap, LOOP_CAM, kc,
-                                                                            ba_fn=ba._schedule_gba))
+                with eager_segments(ba.map_graphs) if way == "eager" else contextlib.nullcontext():
+                    (m_w, c_w), sites = count_syncs(lambda: lc_warm.on_keyframe(m_snap, LOOP_CAM, kc,
+                                                                                ba_fn=ba._schedule_gba))
                 torch.cuda.synchronize()
+                if way == "graphed":
+                    lc_graphs = lc_warm.graphs
                 warm.setdefault(way, []).append(dict(
-                    ms=(time.perf_counter() - t0) * 1e3, closed=c_w, map=m_w, reads=len(sites),
-                    samples=lc_warm.metrics.timer.samples, stats=lc_warm.pose_graph_stats))
+                    ms=(time.perf_counter() - t0) * 1e3, closed=c_w, map=m_w, remap=lc_warm.last_point_remap,
+                    reads=len(sites), samples=lc_warm.metrics.timer.samples, stats=lc_warm.pose_graph_stats,
+                    captures=(lc_graphs.captures - caps[0] if way == "graphed" else 0,
+                              ba.map_graphs.captures - caps[1])))
             for way, runs in warm.items():
                 w, sw = runs[-1], runs[-1]["samples"]
-                log(f"  the closing keyframe {kc} again on the card from the same state (warm), its CG "
-                    f"{way}: {_ms([r['ms'] for r in runs])}, {w['reads']} device->host reads "
-                    f"({w['stats'].get('reads', 0)} of them the CG's), closed {w['closed']}; detection "
+                log(f"  the closing keyframe {kc} again on the card from the same state (warm), {way}: "
+                    f"{_ms([r['ms'] for r in runs])}, {w['reads']} device->host reads "
+                    f"({w['stats'].get('reads', 0)} of them the CG's), closed {w['closed']}, new captures "
+                    f"{[r['captures'] for r in runs]} (essential graph, global BA); detection "
                     f"{sw['loop.detect'][-1] * 1e3:.3f} ms, _compute_sim3 {sw['loop.sim3'][-1] * 1e3:.3f} ms, "
                     f"fusion {sw['loop.fuse'][-1] * 1e3:.3f} ms, essential graph "
                     f"{_ms([r['samples']['loop.essential_graph'][-1] * 1e3 for r in runs])}, global BA "
-                    f"{sw['loop.global_ba'][-1] * 1e3:.3f} ms")
-            equal = all(tree_equal(tuple(g["map"]), tuple(e["map"]))
-                        for g, e in zip(warm["graphed"], warm["eager"]))
-            log(f"  the corrected map (poses, points, observations), CG graphed against eager: "
-                f"{'torch.equal' if equal else 'DIFFERENT'}")
-            if not equal or not all(r["closed"] for runs in warm.values() for r in runs):
-                bad.append("the closing keyframe: the graphed CG differs from the eager one")
-            if warm["graphed"][0]["reads"] > warm["eager"][0]["reads"]:
-                bad.append("the closing keyframe reads more with its CG graphed")
+                    f"{_ms([r['samples']['loop.global_ba'][-1] * 1e3 for r in runs])}")
+            runs = warm["graphed"] + warm["eager"]
+            equal = all(tree_equal(tuple(r["map"]), tuple(runs[0]["map"])) and tree_equal(r["remap"], runs[0]["remap"])
+                        for r in runs)
+            log(f"  every MapState field and the point remap, graphed against eager: "
+                f"{'torch.equal' if equal else 'DIFFERENT'}; the second graphed closure on the first's "
+                f"graphs: new captures {warm['graphed'][1]['captures']}; the closer's graph pool "
+                f"{lc_graphs.pool_bytes() / 2**20:.1f} MiB, static buffers {lc_graphs.buffer_bytes() / 2**20:.1f} MiB")
+            if not equal or not all(r["closed"] for r in runs):
+                bad.append("the closing keyframe: the graphed closure differs from the eager one")
+            if len({r["reads"] for r in warm["graphed"][1:] + warm["eager"]}) != 1:
+                bad.append(f"the closing keyframe's reads differ: {[r['reads'] for r in runs]}")
+            if warm["graphed"][1]["captures"] != (0, 0):
+                bad.append(f"the second closure captured again: {warm['graphed'][1]['captures']}")
             cpu = Tracker(cfg, device="cpu")
             t0 = time.perf_counter()
             m_cpu, c_cpu = lc_cpu.on_keyframe(map_to_torch(map_to_numpy(m_snap), "cpu"), LOOP_CAM, kc,
@@ -2548,6 +2705,7 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
     rec, marks = [], []
     record = session_recorder(tr, rec)
     map_recs = watch_map_jobs(tr)
+    init_gba = keep_first_global_ba(tr)
     fast_nms.launches = 0
     gather_patches.launches = 0
     busy = [False]  # whether a mapping job was in flight when each frame began
@@ -2630,6 +2788,9 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
         bad.append(f"{len(st.get('map.loop', []))} loop stages in {len(jobs)} jobs")
     bad += graph_report("async mono", tr)
     bad += map_graph_report("async mono", tr, map_recs)
+    del tr._global_ba
+    tr.stage_sync = False
+    bad += global_ba_both_ways("async mono", tr, init_gba, smi, full=False)
     system.shutdown()
     if bad:
         raise AssertionError(f"async mono SLAM: {bad}")
@@ -2670,6 +2831,7 @@ def phase_async_gba(smi: str):
     ret_ms = (time.perf_counter() - t0) * 1e3
     tr._gba_future.result()
     job_ms = (time.perf_counter() - t0) * 1e3
+    st = dict(tr.stats)
     t0 = time.perf_counter()
     m2 = tr._poll_gba(m)
     torch.cuda.synchronize()
@@ -2681,14 +2843,21 @@ def phase_async_gba(smi: str):
     aborted = f.result() is None
     m3 = tr._poll_gba(m)
     tr.shutdown()
+    g = tr.gba_graphs
     log(f"async global BA on {smi} ({LOOP_KF} keyframes, {int(m.pt_valid.sum())} points, capacities {K}/{N}/{P}): "
         f"_schedule_gba returned in {ret_ms:.3f} ms, the job (2 chunks of 5 LM iterations on its own "
-        f"stream) took {job_ms:.1f} ms, the merge {merge_ms:.3f} ms; mean reprojection error "
-        f"{e0:.4f} -> {e1:.4f} px; a superseded run {'aborted at a chunk boundary' if aborted else 'finished'} "
-        f"and the map was {'unchanged' if m3 is m else 'CHANGED'}")
-    if out is not m or not e1 < 0.5 * e0 or m3 is not m:
+        f"stream, through tracker.gba_graphs) took {job_ms:.1f} ms, the merge {merge_ms:.3f} ms; mean "
+        f"reprojection error {e0:.4f} -> {e1:.4f} px; gba_iters {st['gba_iters']}, gba_graph_replays "
+        f"{st['gba_graph_replays']}, gba_graph_captures {st['gba_graph_captures']} ({captures_report(g)}), "
+        f"graph pool {g.pool_bytes() / 2**20:.1f} MiB, static buffers {g.buffer_bytes() / 2**20:.1f} MiB; a "
+        f"superseded run {'aborted at a chunk boundary' if aborted else 'finished'} and the map was "
+        f"{'unchanged' if m3 is m else 'CHANGED'}")
+    if out is not m or not e1 < 0.5 * e0 or m3 is not m or not aborted:
         raise AssertionError(f"async global BA: returned the map {out is m}, error {e0:.4f} -> {e1:.4f}, "
-                             f"superseded run left the map {m3 is m}")
+                             f"superseded run aborted {aborted}, left the map {m3 is m}")
+    if not st["gba_graph_replays"] == st["gba_iters"] == 10:
+        raise AssertionError(f"async global BA: {st['gba_graph_replays']} replays of {st['gba_iters']} "
+                             f"LM iterations")
     return m
 
 
@@ -2828,10 +2997,13 @@ def phase_sharded(smi: str, map_path: str, loop_map) -> None:
     K, P = loop_map.capacity_kf, loop_map.capacity_pt
     single = Tracker(TrackerConfig(cam=LOOP_CAM, max_keyframes=K, max_points=P, enable_loop_closing=False),
                      device="cuda")
-    probs = []
-    run_ba = single._run_ba
-    single._run_ba = lambda p, iters: probs.append(p) or run_ba(p, iters)
-    g1 = single._global_ba(loop_map, iters=4)
+    sharded = Tracker(single.cfg, device="cuda")
+    sharded._ba_mesh = mesh
+    probs = []  # the problem of the mesh path: the live edges, unpadded
+    run_ba = sharded._run_ba
+    sharded._run_ba = lambda p, iters: probs.append(p) or run_ba(p, iters)
+    g2 = sharded._global_ba(loop_map, iters=4)
+    g1 = single._global_ba(loop_map, iters=4)  # padded, through its graphs
     # Its points fill the first slots, so contiguous blocks of the 200,000
     # slots put every edge in shard 0; the solvers are held on the problem
     # with the point capacity cut to the live slots too, where both shards
@@ -2845,9 +3017,6 @@ def phase_sharded(smi: str, map_path: str, loop_map) -> None:
     per_shard = torch.bincount(live.pt.long() // -(-n_live // PAR_SHARDS), minlength=PAR_SHARDS).tolist()
     bad += _sharded_ba(f"the same, the points cut to the {n_live} live slots (edges per point block {per_shard})",
                        live, LOOP_CAM, mesh, dict(iters=4))
-    sharded = Tracker(single.cfg, device="cuda")
-    sharded._ba_mesh = mesh
-    g2 = sharded._global_ba(loop_map, iters=4)
     errs = [float((getattr(g2, f) - getattr(g1, f)).abs().max()) for f in ("kf_R", "kf_t", "pt_xyz")]
     log(f"    Tracker._global_ba through its point-sharded path (200,000 slots) against its single-device "
         f"one: max |dR| {errs[0]:.2e}, |dt| {errs[1]:.2e}, |dX| {errs[2]:.2e}")

@@ -682,7 +682,7 @@ def test_pose_graph_cg_graphed_equals_eager_and_matches_jax(fix_scale):
         StepGraphs.run = real_run
     eager = pose_graph.optimize_pose_graph(s0, R0, t0, valid, fixed, e, iters=8, fix_scale=fix_scale,
                                            dense_max_nodes=4, stats=stats["eager"], run=call_segment)
-    assert names and set(names) == {"cg"}
+    assert names and set(names) == {"pg_setup", "cg", "pg_update"}
     assert _equal(graphed, eager)
     g, ee = stats["graphed"], stats["eager"]
     assert g["reads"] == ee["reads"] and [int(x) for x in g["cg_iters"]] == [int(x) for x in ee["cg_iters"]]

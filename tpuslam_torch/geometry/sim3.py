@@ -51,10 +51,12 @@ def sim3_exp(xi: torch.Tensor):
 
 
 def sim3_log(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(s, R, t) -> tangent (..., 7), the inverse of sim3_exp (W solved)."""
+    """(s, R, t) -> tangent (..., 7), the inverse of sim3_exp (W solved by
+    solve_ex: the LAPACK call of torch.linalg.solve, without its host check
+    of the status, so a CUDA graph can capture it)."""
     w = so3_log(R)
     sigma = torch.log(torch.clamp(s, min=1e-12))
-    v = torch.linalg.solve(_sim3_W(w, sigma), t[..., None])[..., 0]
+    v = torch.linalg.solve_ex(_sim3_W(w, sigma), t[..., None])[0][..., 0]
     return torch.cat([w, v, sigma[..., None]], dim=-1)
 
 

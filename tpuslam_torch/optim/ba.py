@@ -8,10 +8,22 @@ scatter_sum: a fixed order of addition, so the card repeats its sums).
 The local-BA solver `dense_schur_bundle_adjustment` assembles S densely
 over at most A adjustable keyframes and solves it directly.
 
-Both run their LM and CG iterations as Python loops with no host read: the
+Both run their iterations as Python loops with no host read: the
 accept/reject of each LM step and the CG step sizes are `torch.where`s on
 the device. Problems are fixed-capacity tensors; fixed or invalid poses and
 points are masked out of the Jacobians and their blocks pinned to identity.
+
+`bundle_adjustment`'s LM iteration is one pure segment, `lm_step` (the
+JAX package's `lax.scan` body), run through a `run` hook: by default
+eagerly (pipeline/graphs.py's call_segment), through a StepGraphs as one
+CUDA graph replay per iteration. An edge list may be padded to a fixed
+length (pipeline/_index.py's edge_bucket) with edges parked out of range
+(kf = K, pt = P): gathers clamp them, every sum over edges is a
+scatter_sum, which drops them, and the robust cost is summed per keyframe
+first, so the padded solve equals the unpadded one bit for bit on the
+CPU. (Summed so, the costs round otherwise than one torch.sum over the
+edges would: an LM step at a near tie can be taken or rejected the other
+way.)
 
 `bundle_adjustment` also runs as one shard's body of a distributed solve
 (parallel/dist_ba.py), the counterpart of the JAX package's `axis_name`:
@@ -27,7 +39,8 @@ import torch
 from tpuslam_torch.geometry.camera import PinholeCamera
 from tpuslam_torch.geometry.se3 import hat, se3_compose, se3_exp, so3_project
 from tpuslam_torch.optim.robust import CHI2_MONO, CHI2_STEREO
-from tpuslam_torch.pipeline._index import scatter_sum, sum_plan
+from tpuslam_torch.pipeline._index import SumPlan, scatter_sum, sum_plan
+from tpuslam_torch.pipeline.graphs import call_segment
 
 
 class BAProblem(NamedTuple):
@@ -48,8 +61,10 @@ class BAProblem(NamedTuple):
 
 
 def _edge_terms(cam: PinholeCamera, R, t, X, prob: BAProblem):
-    """Residual (E, 3), J_pose (E, 3, 6), J_pt (E, 3, 3), stereo mask."""
-    kf, pt = prob.kf.long(), prob.pt.long()
+    """Residual (E, 3), J_pose (E, 3, 6), J_pt (E, 3, 3), stereo mask. An
+    edge parked out of range gathers the last keyframe and point."""
+    kf = prob.kf.long().clamp(max=R.shape[0] - 1)
+    pt = prob.pt.long().clamp(max=X.shape[0] - 1)
     Rk = R[kf]
     p = (Rk @ X[pt][..., None])[..., 0] + t[kf]
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
@@ -124,15 +139,25 @@ def _huber_weight(chi2, delta_sq, use_huber: bool):
 
 
 def _lm_accept(cam, prob, R, t, X, R_new, t_new, X_new, lam, active0, delta_sq, use_huber,
-               reduce=None):
+               reduce=None, by_kf: Optional[SumPlan] = None):
     """One LM accept/reject on the device: the step is taken where the robust
     cost falls; lambda halves on success and quadruples on failure. With a
-    `reduce` hook both costs are summed over the shards in one reduction."""
-    def total(R, t, X):
+    `reduce` hook both costs are summed over the shards in one reduction.
+    With `by_kf` (sum_plan(prob.kf, K)) each cost is summed per keyframe in
+    edge order, then over the keyframes: edges parked out of range drop
+    out, and the padding leaves the sums as they are."""
+    def edge_cost(R, t, X):
         r, _, _, _ = _edge_terms(cam, R, t, X, prob)
-        return torch.sum(_robust(torch.sum(r * r, -1) * prob.inv_sigma2, delta_sq, use_huber) * active0)
+        return _robust(torch.sum(r * r, -1) * prob.inv_sigma2, delta_sq, use_huber) * active0
 
-    if reduce is None:
+    def total(R, t, X):
+        return torch.sum(edge_cost(R, t, X))
+
+    if by_kf is not None:
+        costs = torch.stack([edge_cost(R_new, t_new, X_new), edge_cost(R, t, X)], dim=-1)
+        new, old = scatter_sum(R.shape[0], prob.kf, costs, by_kf).sum(0).unbind()
+        ok = new < old
+    elif reduce is None:
         ok = total(R_new, t_new, X_new) < total(R, t, X)
     else:
         new, old = reduce(torch.stack([total(R_new, t_new, X_new), total(R, t, X)]), "pose").unbind()
@@ -149,13 +174,133 @@ def _edge_chi2(cam, prob, R, t, X):
 Reduce = Callable[[torch.Tensor, str], torch.Tensor]
 
 
+class BAPlans(NamedTuple):
+    """The scatter-sum plans of a problem's edges, fixed across its LM
+    iterations."""
+
+    by_pt: SumPlan  # sum_plan(prob.pt, P)
+    by_kf: SumPlan  # sum_plan(prob.kf, K)
+
+
+def ba_plans(prob: BAProblem) -> BAPlans:
+    return BAPlans(sum_plan(prob.pt, prob.X.shape[0]), sum_plan(prob.kf, prob.R.shape[0]))
+
+
+def lm_step(cam: PinholeCamera, prob: BAProblem, plans: BAPlans, R, t, X, lam, *, use_huber: bool,
+            cg_iters: int, reduce: Optional[Reduce] = None):
+    """One LM iteration of bundle_adjustment from (R, t, X, lam): the normal
+    equations, `cg_iters` block-Jacobi PCG iterations on the reduced camera
+    system, the back-substitution and the accept/reject, all on the device.
+    Returns the new (R, t, X, lam). Without `reduce` a pure segment (no host
+    read, inputs unmodified); an edge parked out of range (kf = K, pt = P)
+    is gathered clamped and dropped by every scatter_sum."""
+    K, P = R.shape[0], X.shape[0]
+    dev = X.device
+    kf, pt = prob.kf.long(), prob.pt.long()
+    kfc, ptc = kf.clamp(max=K - 1), pt.clamp(max=P - 1)
+    by_pt, by_kf = plans
+    delta_sq = torch.where(prob.uvr[:, 2] >= 0.0, CHI2_STEREO, CHI2_MONO)
+    info = prob.inv_sigma2
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+    active0 = prob.valid.to(torch.float32)
+    kf_pinned, pt_pinned = prob.fixed_kf, prob.fixed_pt
+    fixed_kf_e, fixed_pt_e = kf_pinned[kfc], pt_pinned[ptc]
+
+    r, Jp, Jl, _ = _edge_terms(cam, R, t, X, prob)
+    chi2 = torch.sum(r * r, dim=-1) * info
+    w = _huber_weight(chi2, delta_sq, use_huber) * info * active0
+    Jp = torch.where(fixed_kf_e[:, None, None], 0.0, Jp)
+    Jl = torch.where(fixed_pt_e[:, None, None], 0.0, Jl)
+
+    wJp = w[:, None, None] * Jp
+    wJl = w[:, None, None] * Jl
+    Hpp_e = wJp.transpose(-1, -2) @ Jp   # (E, 6, 6)
+    Hll_e = wJl.transpose(-1, -2) @ Jl   # (E, 3, 3)
+    W_e = wJp.transpose(-1, -2) @ Jl     # (E, 6, 3): the Hpl block
+    bp_e = -torch.einsum("eij,ei->ej", wJp, r)
+    bl_e = -torch.einsum("eij,ei->ej", wJl, r)
+
+    Hll = scatter_sum(P, pt, Hll_e, by_pt)
+    bl = scatter_sum(P, pt, bl_e, by_pt)
+    if reduce is not None:
+        acc_l = reduce(torch.cat([Hll.reshape(P, 9), bl], dim=-1), "point")
+        Hll, bl = acc_l[:, :9].reshape(P, 3, 3), acc_l[:, 9:]
+    # LM damping plus a trace-relative floor (see the JAX package: rank-2
+    # single-observation point blocks), fixed/empty blocks pinned.
+    tr3 = (Hll[:, 0, 0] + Hll[:, 1, 1] + Hll[:, 2, 2])[:, None, None]
+    Hll = Hll + (lam + 1e-5 * tr3 + 1e-10) * eye3
+    Hll = torch.where(pt_pinned[:, None, None], eye3, Hll)
+    bl = torch.where(pt_pinned[:, None], 0.0, bl)
+    W_e = torch.where((fixed_kf_e | fixed_pt_e)[:, None, None], 0.0, W_e)
+    Hll_inv = _batched_inv3(Hll)
+
+    z0 = (Hll_inv @ bl[..., None])[..., 0]
+    coup_e = (W_e @ z0[ptc][..., None])[..., 0]
+    packed = scatter_sum(K, kf, torch.cat([Hpp_e, bp_e[..., None], coup_e[..., None]], dim=-1), by_kf)
+    if reduce is not None:
+        packed = reduce(packed, "pose")
+    Hpp, bp, coup = packed[..., :6], packed[..., 6], packed[..., 7]
+    tr6 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)[:, None, None]
+    Hpp = Hpp + (lam + 1e-5 * tr6 + 1e-10) * eye6
+    Hpp = torch.where(kf_pinned[:, None, None], eye6, Hpp)
+    bp = torch.where(kf_pinned[:, None], 0.0, bp)
+    W_t = W_e.transpose(-1, -2)
+
+    def S_matvec(vk):
+        ysum = scatter_sum(P, pt, (W_t @ vk[kfc][..., None])[..., 0], by_pt)
+        if reduce is not None:
+            ysum = reduce(ysum, "point")
+        z = (Hll_inv @ ysum[..., None])[..., 0]
+        coupling = scatter_sum(K, kf, (W_e @ z[ptc][..., None])[..., 0], by_kf)
+        if reduce is not None:
+            coupling = reduce(coupling, "pose")
+        return (Hpp @ vk[..., None])[..., 0] - coupling
+
+    rhs = bp - torch.where(kf_pinned[:, None], 0.0, coup)
+    Minv = torch.linalg.inv_ex(Hpp)[0]
+    xk = torch.zeros((K, 6), device=dev)
+    rk = rhs
+    pk = (Minv @ rk[..., None])[..., 0]
+    rz = torch.sum(rk * pk)
+    for _ in range(cg_iters):
+        Sp = S_matvec(pk)
+        denom = torch.sum(pk * Sp)
+        alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
+        xk = xk + alpha * pk
+        rk = rk - alpha * Sp
+        zk = (Minv @ rk[..., None])[..., 0]
+        rz_new = torch.sum(rk * zk)
+        beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, 0.0)
+        pk = zk + beta * pk
+        rz = rz_new
+    dx_pose = xk
+
+    # Back-substitute the points: dx_pt = Hll^-1 (bl - W^T dx_pose).
+    hlp_dx = scatter_sum(P, pt, (W_t @ dx_pose[kfc][..., None])[..., 0], by_pt)
+    if reduce is not None:
+        hlp_dx = reduce(hlp_dx, "point")
+    dx_pt = (Hll_inv @ (bl - hlp_dx)[..., None])[..., 0]
+    dx_pose = torch.where(kf_pinned[:, None], 0.0, dx_pose)
+    dx_pt = torch.where(pt_pinned[:, None], 0.0, dx_pt)
+
+    R_new, t_new = se3_compose(*se3_exp(dx_pose), R, t)
+    return _lm_accept(cam, prob, R, t, X, R_new, t_new, X + dx_pt, lam, active0, delta_sq, use_huber,
+                      reduce, by_kf=by_kf if reduce is None else None)
+
+
 def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_huber: bool = True,
-                      cg_iters: int = 40, lam0: float = 1e-4, reduce: Optional[Reduce] = None):
-    """`iters` LM steps, each solving the reduced camera system by `cg_iters`
-    block-Jacobi PCG iterations. Returns (R, t, X, edge_chi2).
+                      cg_iters: int = 40, lam0: float = 1e-4, reduce: Optional[Reduce] = None,
+                      run=None):
+    """`iters` LM steps (lm_step), each solving the reduced camera system by
+    `cg_iters` block-Jacobi PCG iterations. Returns (R, t, X, edge_chi2).
+
+    run: how each LM step runs (StepGraphs.run's signature: name, fn,
+    static arguments, tensor inputs); None runs it eagerly (call_segment).
 
     reduce: None on one device. Otherwise the call is one shard of a
-    distributed solve: prob holds this shard's edges (and, point-sharded,
+    distributed solve (run eagerly, `run` unused): prob holds this shard's
+    edges (and, point-sharded,
     its block of points), the poses are replicated, and reduce(x, side)
     returns the sum of the shards' partial tensors x on this shard's
     device. Side "pose" is the robust cost, the packed (K, 6, 8) Hpp / bp
@@ -164,101 +309,18 @@ def bundle_adjustment(cam: PinholeCamera, prob: BAProblem, iters: int = 10, use_
     back-substitution's W^T dx, which the hook leaves alone when each shard
     owns its points and sums when the edges are split over replicated
     points. Every shard then walks the same pose iterates."""
-    K, P = prob.R.shape[0], prob.X.shape[0]
-    dev = prob.X.device
-    kf, pt = prob.kf.long(), prob.pt.long()
-    delta_sq = torch.where(prob.uvr[:, 2] >= 0.0, CHI2_STEREO, CHI2_MONO)
-    info = prob.inv_sigma2
-    eye3 = torch.eye(3, device=dev)
-    eye6 = torch.eye(6, device=dev)
-    active0 = prob.valid.to(torch.float32)
-    kf_pinned, pt_pinned = prob.fixed_kf, prob.fixed_pt
-    fixed_kf_e, fixed_pt_e = kf_pinned[kf], pt_pinned[pt]
-    by_pt, by_kf = sum_plan(pt, P), sum_plan(kf, K)
-
+    plans = ba_plans(prob)
     R, t, X = prob.R, prob.t, prob.X
-    lam = torch.full((), lam0, dtype=torch.float32, device=dev)
-    for _ in range(iters):
-        r, Jp, Jl, _ = _edge_terms(cam, R, t, X, prob)
-        chi2 = torch.sum(r * r, dim=-1) * info
-        w = _huber_weight(chi2, delta_sq, use_huber) * info * active0
-        Jp = torch.where(fixed_kf_e[:, None, None], 0.0, Jp)
-        Jl = torch.where(fixed_pt_e[:, None, None], 0.0, Jl)
-
-        wJp = w[:, None, None] * Jp
-        wJl = w[:, None, None] * Jl
-        Hpp_e = wJp.transpose(-1, -2) @ Jp   # (E, 6, 6)
-        Hll_e = wJl.transpose(-1, -2) @ Jl   # (E, 3, 3)
-        W_e = wJp.transpose(-1, -2) @ Jl     # (E, 6, 3): the Hpl block
-        bp_e = -torch.einsum("eij,ei->ej", wJp, r)
-        bl_e = -torch.einsum("eij,ei->ej", wJl, r)
-
-        Hll = scatter_sum(P, pt, Hll_e, by_pt)
-        bl = scatter_sum(P, pt, bl_e, by_pt)
-        if reduce is not None:
-            acc_l = reduce(torch.cat([Hll.reshape(P, 9), bl], dim=-1), "point")
-            Hll, bl = acc_l[:, :9].reshape(P, 3, 3), acc_l[:, 9:]
-        # LM damping plus a trace-relative floor (see the JAX package: rank-2
-        # single-observation point blocks), fixed/empty blocks pinned.
-        tr3 = (Hll[:, 0, 0] + Hll[:, 1, 1] + Hll[:, 2, 2])[:, None, None]
-        Hll = Hll + (lam + 1e-5 * tr3 + 1e-10) * eye3
-        Hll = torch.where(pt_pinned[:, None, None], eye3, Hll)
-        bl = torch.where(pt_pinned[:, None], 0.0, bl)
-        W_e = torch.where((fixed_kf_e | fixed_pt_e)[:, None, None], 0.0, W_e)
-        Hll_inv = _batched_inv3(Hll)
-
-        z0 = (Hll_inv @ bl[..., None])[..., 0]
-        coup_e = (W_e @ z0[pt][..., None])[..., 0]
-        packed = scatter_sum(K, kf, torch.cat([Hpp_e, bp_e[..., None], coup_e[..., None]], dim=-1), by_kf)
-        if reduce is not None:
-            packed = reduce(packed, "pose")
-        Hpp, bp, coup = packed[..., :6], packed[..., 6], packed[..., 7]
-        tr6 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)[:, None, None]
-        Hpp = Hpp + (lam + 1e-5 * tr6 + 1e-10) * eye6
-        Hpp = torch.where(kf_pinned[:, None, None], eye6, Hpp)
-        bp = torch.where(kf_pinned[:, None], 0.0, bp)
-        W_t = W_e.transpose(-1, -2)
-
-        def S_matvec(vk):
-            ysum = scatter_sum(P, pt, (W_t @ vk[kf][..., None])[..., 0], by_pt)
-            if reduce is not None:
-                ysum = reduce(ysum, "point")
-            z = (Hll_inv @ ysum[..., None])[..., 0]
-            coupling = scatter_sum(K, kf, (W_e @ z[pt][..., None])[..., 0], by_kf)
-            if reduce is not None:
-                coupling = reduce(coupling, "pose")
-            return (Hpp @ vk[..., None])[..., 0] - coupling
-
-        rhs = bp - torch.where(kf_pinned[:, None], 0.0, coup)
-        Minv = torch.linalg.inv_ex(Hpp)[0]
-        xk = torch.zeros((K, 6), device=dev)
-        rk = rhs
-        pk = (Minv @ rk[..., None])[..., 0]
-        rz = torch.sum(rk * pk)
-        for _ in range(cg_iters):
-            Sp = S_matvec(pk)
-            denom = torch.sum(pk * Sp)
-            alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
-            xk = xk + alpha * pk
-            rk = rk - alpha * Sp
-            zk = (Minv @ rk[..., None])[..., 0]
-            rz_new = torch.sum(rk * zk)
-            beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, 0.0)
-            pk = zk + beta * pk
-            rz = rz_new
-        dx_pose = xk
-
-        # Back-substitute the points: dx_pt = Hll^-1 (bl - W^T dx_pose).
-        hlp_dx = scatter_sum(P, pt, (W_t @ dx_pose[kf][..., None])[..., 0], by_pt)
-        if reduce is not None:
-            hlp_dx = reduce(hlp_dx, "point")
-        dx_pt = (Hll_inv @ (bl - hlp_dx)[..., None])[..., 0]
-        dx_pose = torch.where(kf_pinned[:, None], 0.0, dx_pose)
-        dx_pt = torch.where(pt_pinned[:, None], 0.0, dx_pt)
-
-        R_new, t_new = se3_compose(*se3_exp(dx_pose), R, t)
-        R, t, X, lam = _lm_accept(cam, prob, R, t, X, R_new, t_new, X + dx_pt, lam,
-                                  active0, delta_sq, use_huber, reduce)
+    lam = torch.full((), lam0, dtype=torch.float32, device=prob.X.device)
+    if reduce is not None:
+        for _ in range(iters):
+            R, t, X, lam = lm_step(cam, prob, plans, R, t, X, lam, use_huber=use_huber,
+                                   cg_iters=cg_iters, reduce=reduce)
+    else:
+        run = call_segment if run is None else run
+        static = dict(cam=cam, use_huber=use_huber, cg_iters=cg_iters)
+        for _ in range(iters):
+            R, t, X, lam = run("ba_lm", lm_step, static, prob=prob, plans=plans, R=R, t=t, X=X, lam=lam)
     # Exact rotations written back: map poses feed every later composition.
     R = so3_project(R)
     return R, t, X, _edge_chi2(cam, prob, R, t, X)

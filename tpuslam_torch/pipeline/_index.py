@@ -104,3 +104,9 @@ def scatter_sum(n: int, idx: torch.Tensor, src: torch.Tensor,
         plan = sum_plan(idx, n)
     return torch.segment_reduce(src[plan.perm], "sum", offsets=plan.offsets, axis=0,
                                 unsafe=True, initial=0)
+
+
+def edge_bucket(n: int, least: int = 4096) -> int:
+    """The padded length of a list of n edges: the next power of two, at
+    least `least`. A solver padded to it is captured once per bucket."""
+    return max(least, 1 << max(n - 1, 0).bit_length())

@@ -49,6 +49,7 @@ from tpuslam_torch.matching.search import (
 )
 from tpuslam_torch.optim.pose_graph import Sim3Edges, make_relative, optimize_pose_graph
 from tpuslam_torch.pipeline._index import scatter_last_dropping, sf_pow
+from tpuslam_torch.pipeline.graphs import StepGraphs
 from tpuslam_torch.place.database import SparseBow, SparseKeyFrameDatabase, l1_score_sparse
 from tpuslam_torch.place.vocabulary import (
     DEFAULT_VOCAB_1M_PATH,
@@ -120,11 +121,18 @@ class LoopCloser:
         self.metrics = Metrics()
         self.stage_sync = False
         self.pose_graph_stats: dict = {}
-        # The essential graph's CG runner (optimize_pose_graph's `run`):
-        # None graphs each solve's CG blocks in a StepGraphs of its own
-        # (CUDA graphs on a card); pipeline/graphs.py's call_segment runs
-        # them eagerly.
+        # The essential graph's runner (optimize_pose_graph's `run`): None
+        # runs each solve's GN segments and CG blocks through `graphs`, the
+        # closer's own StepGraphs (CUDA graphs on a card, kept from one
+        # closure to the next, so a later closure in the same edge bucket
+        # replays them); pipeline/graphs.py's call_segment runs them
+        # eagerly.
         self.cg_run = None
+        self.graphs: Optional[StepGraphs] = None
+
+    def __getstate__(self):
+        """Copies and pickles leave the captured graphs behind."""
+        return dict(self.__dict__, graphs=None)
 
     def to(self, device) -> "LoopCloser":
         """A copy of the closer's whole state (vocabulary, database, caches,
@@ -147,6 +155,15 @@ class LoopCloser:
         lc.generator.set_state(self.generator.get_state())
         lc.metrics, lc.pose_graph_stats, lc.last_point_remap = Metrics(), {}, None
         return lc
+
+    def _run(self, dev: torch.device):
+        """The essential graph's `run`: cg_run when set, else the closer's
+        StepGraphs (made at the first solve, on the map's device)."""
+        if self.cg_run is not None:
+            return self.cg_run
+        if self.graphs is None:
+            self.graphs = StepGraphs(dev, self.metrics, stage="loop.capture")
+        return self.graphs.run
 
     @contextlib.contextmanager
     def _stage(self, name: str, dev: torch.device):
@@ -573,6 +590,9 @@ class LoopCloser:
             # Dense or CG by the live node count: a small session's live
             # keyframes are compacted into a fixed 192-node dense problem.
             self.pose_graph_stats = stats = {}
+            run = self._run(dev)
+            g = self.graphs if self.cg_run is None else None
+            g0 = (g.captures, g.replays, len(g.captured)) if g is not None else None
             n_live = len(order)
             if n_live <= DENSE_NODES < K:
                 comp = np.full(K, DENSE_NODES - 1, np.int64)
@@ -585,7 +605,7 @@ class LoopCloser:
                 s_c, R_c, t_c, _ = optimize_pose_graph(
                     s_init[sel], R_init[sel], t_init[sel], torch.arange(DENSE_NODES, device=dev) < n_live,
                     nfixed, edges_c, iters=15, fix_scale=self.fix_scale, dense_max_nodes=DENSE_NODES,
-                    stats=stats, run=self.cg_run)
+                    stats=stats, run=run)
                 live = _to_device(ov, dev)
                 s_new, R_new, t_new = s_init.clone(), R_init.clone(), t_init.clone()
                 s_new[live], R_new[live], t_new[live] = s_c[:n_live], R_c[:n_live], t_c[:n_live]
@@ -595,8 +615,11 @@ class LoopCloser:
                 s_new, R_new, t_new, _ = optimize_pose_graph(
                     s_init, R_init, t_init, m.kf_valid, node_fixed, edges, iters=15,
                     fix_scale=self.fix_scale, dense_max_nodes=DENSE_NODES, stats=stats,
-                    run=self.cg_run)
+                    run=run)
             stats.update(n_live=n_live, n_edges=E)
+            if g is not None:
+                stats["graph"] = dict(captures=g.captures - g0[0], replays=g.replays - g0[1],
+                                      captured=g.captured[g0[2]:], pool_bytes=g.pool_bytes())
 
             # Point correction through each point's reference keyframe, then
             # the SE3 poses back (t / s) with exact rotations.

@@ -38,9 +38,14 @@ visual odometry go through `StepGraphs` (pipeline/graphs.py;
 replayed at each later call; on the CPU the segments run on the same
 static buffers. The keyframe job (mapping_front, both local-BA chunks,
 the normals, point compaction) goes through a second StepGraphs,
-`tracker.map_graphs`, which only the thread running the job uses; the
-global BA and the loop stage stay eager. `tracker.map_graphs.run =
-steps.call_segment` runs the job eagerly. A steady-state frame makes one
+`tracker.map_graphs`, which only the thread running the job uses. The
+global BA's LM iterations (optim/ba.py's lm_step) replay through the
+calling thread's StepGraphs: the initial one through `graphs`, a
+closure's through `map_graphs` (it runs in the keyframe job) and the GBA
+thread's through a third, `tracker.gba_graphs`; the loop closer keeps its
+own for the essential graph (LoopCloser.graphs). `tracker.map_graphs.run
+= steps.call_segment` runs the job eagerly (and the same on `graphs`,
+`gba_graphs`, or `LoopCloser.cg_run`). A steady-state frame makes one
 packed device->host fetch beyond the step's own verdict read; keyframe
 slots are assigned on the host, so insertion never reads the device
 watermark.
@@ -78,7 +83,7 @@ from tpuslam_torch.ops.orb import ORBConfig, extract_orb
 from tpuslam_torch.optim.ba import BAProblem, bundle_adjustment
 from tpuslam_torch.optim.linalg import load_cuda_linalg
 from tpuslam_torch.pipeline import steps
-from tpuslam_torch.pipeline._index import scatter_last
+from tpuslam_torch.pipeline._index import edge_bucket, nonzero_static, scatter_last
 from tpuslam_torch.pipeline.graphs import StepGraphs
 from tpuslam_torch.pipeline.loop_closing import LoopCloser
 from tpuslam_torch.place.database import SparseBow, SparseKeyFrameDatabase
@@ -205,15 +210,20 @@ class Tracker:
         # graph_replays: steady-state frames whose step ran as graph
         # replays; graph_captures: graphs captured. map_jobs: keyframe
         # jobs (_mapping_compute); map_graph_replays: those whose segments
-        # all replayed; map_graph_captures: the mapping graphs captured.
+        # all replayed; map_graph_captures: the mapping graphs captured
+        # (map_graphs' captures, a closure's global BA included). gba_iters:
+        # global-BA LM iterations; gba_graph_replays: those replayed as
+        # graphs (all of them on a card); gba_graph_captures: the global
+        # BA's captures.
         self.stats = {"dispatches": 0, "syncs": 0, "fused_frames": 0, "slow_frames": 0,
                       "graph_replays": 0, "graph_captures": 0, "map_jobs": 0,
-                      "map_graph_replays": 0, "map_graph_captures": 0}
+                      "map_graph_replays": 0, "map_graph_captures": 0, "gba_iters": 0,
+                      "gba_graph_replays": 0, "gba_graph_captures": 0}
         # The tracking thread's segments (frame step, keyframe insertion,
-        # relocalization), and the mapping job's (on the mapping thread
-        # under async_mapping): one StepGraphs per thread.
-        self.graphs = StepGraphs(self.device, self.metrics)
-        self.map_graphs = StepGraphs(self.device, self.metrics, stage="map.capture")
+        # relocalization, the initial global BA), the mapping job's (on the
+        # mapping thread under async_mapping; a closure's global BA too) and
+        # the GBA thread's: one StepGraphs per thread.
+        self._new_graphs()
         # Trajectory: (frame_id, ref_kf, R_rel, t_rel, lost), resolved against
         # the optimized keyframe poses at export.
         self.trajectory = []
@@ -262,15 +272,20 @@ class Tracker:
         synchronously and captures its own."""
         state = dict(self.__dict__)
         for k in ("_mapping_pool", "_gba_pool", "_mapping_future", "_gba_future", "_map_stream",
-                  "_gba_stream", "_remote_mapper", "_mapping_interrupt", "graphs", "map_graphs"):
+                  "_gba_stream", "_remote_mapper", "_mapping_interrupt", "graphs", "map_graphs",
+                  "gba_graphs"):
             state[k] = None
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._mapping_interrupt = threading.Event()
+        self._new_graphs()
+
+    def _new_graphs(self):
         self.graphs = StepGraphs(self.device, self.metrics)
         self.map_graphs = StepGraphs(self.device, self.metrics, stage="map.capture")
+        self.gba_graphs = StepGraphs(self.device, self.metrics, stage="gba.capture")
 
     def _new_loop_closer(self, voc) -> LoopCloser:
         lc = LoopCloser(self.cfg.max_keyframes, fix_scale=False, voc=voc)
@@ -455,34 +470,53 @@ class Tracker:
         self._record_pose(frame_id, self._last_R, self._last_t)
         return True
 
-    def _global_ba(self, m: MapState, iters: int = 20) -> MapState:
-        """Global BA over every observation of the map, keyframe 0 fixed.
-        The solver takes the live edges only (one read: their count), where
-        the JAX package passes all K*N slots with the dead ones at zero
-        weight: the same sums, in another order."""
+    def _global_ba(self, m: MapState, iters: int = 20, graphs: Optional[StepGraphs] = None) -> MapState:
+        """Global BA over every observation of the map, keyframe 0 fixed,
+        its LM iterations through `graphs` (the calling thread's
+        StepGraphs; the tracking thread's by default). The solver takes the
+        live edges only (one read: their count), where the JAX package
+        passes all K*N slots with the dead ones at zero weight: the same
+        sums, in another order. The live edges come first, in slot order,
+        padded to edge_bucket(count) with edges parked out of range (kf =
+        K, pt = P), so a card replays one graph per (K, P, bucket, CG
+        iterations), and the padded solve equals the unpadded one bit for
+        bit on the CPU. With a BA mesh the solve is point-sharded, eager
+        and unpadded."""
         K, N = m.kf_obs_pt.shape
-        kfi = torch.arange(K, dtype=torch.int32, device=self.device).repeat_interleave(N)
+        P = m.capacity_pt
+        dev = self.device
+        kfi = torch.arange(K, dtype=torch.int32, device=dev).repeat_interleave(N)
         pti = m.kf_obs_pt.reshape(-1)
         has = (pti >= 0) & m.kf_kp_valid.reshape(-1) & m.kf_valid[kfi.long()]
-        live = torch.nonzero(has & m.pt_valid[pti.clamp(min=0).long()])[:, 0]
+        live_mask = has & m.pt_valid[pti.clamp(min=0).long()]
         uvr = torch.cat([m.kf_kp_xy.reshape(K * N, 2), m.kf_kp_uright.reshape(K * N, 1)], dim=-1)
         lvl = torch.clamp(m.kf_kp_level.reshape(-1), 0, self.inv_sigma2.shape[0] - 1).long()
-        prob = BAProblem(
-            R=m.kf_R, t=m.kf_t, X=m.pt_xyz, kf=kfi[live], pt=pti[live], uvr=uvr[live],
-            inv_sigma2=self.inv_sigma2[lvl[live]],
-            valid=torch.ones(live.shape, dtype=torch.bool, device=self.device),
-            fixed_kf=~m.kf_valid | (torch.arange(K, device=self.device) == 0),
-            fixed_pt=~m.pt_valid,
-        )
-        R, t, X, _ = self._run_ba(prob, iters=iters)
+        common = dict(R=m.kf_R, t=m.kf_t, X=m.pt_xyz, fixed_kf=~m.kf_valid | (torch.arange(K, device=dev) == 0),
+                      fixed_pt=~m.pt_valid)
+        if self._ba_mesh is not None:
+            live = torch.nonzero(live_mask)[:, 0]
+            prob = BAProblem(kf=kfi[live], pt=pti[live], uvr=uvr[live], inv_sigma2=self.inv_sigma2[lvl[live]],
+                             valid=torch.ones(live.shape, dtype=torch.bool, device=dev), **common)
+            R, t, X, _ = self._run_ba(prob, iters=iters)
+            return m._replace(kf_R=R, kf_t=t, pt_xyz=X)
+        live = nonzero_static(live_mask, edge_bucket(int(live_mask.sum())), K * N)
+        pad = live == K * N
+        at = live.clamp(max=K * N - 1)
+        prob = BAProblem(kf=torch.where(pad, K, kfi[at]), pt=torch.where(pad, P, pti[at]),
+                         uvr=torch.where(pad[:, None], 0.0, uvr[at]),
+                         inv_sigma2=torch.where(pad, 0.0, self.inv_sigma2[lvl[at]]), valid=~pad, **common)
+        g = self.graphs if graphs is None else graphs
+        replays, captures = g.replays, g.captures
+        R, t, X, _ = bundle_adjustment(self.cfg.cam, prob, iters=iters, run=g.run)
+        self.stats["gba_iters"] += iters
+        self.stats["gba_graph_replays"] += g.replays - replays
+        self.stats["gba_graph_captures"] += g.captures - captures
         return m._replace(kf_R=R, kf_t=t, pt_xyz=X)
 
     def _run_ba(self, prob: BAProblem, iters: int):
-        """The single-device solver, or with a mesh the point-sharded one
-        (point blocks and their edges per device, the pose system summed
-        over the shards): both reach the same stationary points."""
-        if self._ba_mesh is None:
-            return bundle_adjustment(self.cfg.cam, prob, iters=iters)
+        """The point-sharded solver over the BA mesh (point blocks and their
+        edges per device, the pose system summed over the shards): it
+        reaches the single-device solver's stationary points."""
         from tpuslam_torch.parallel.dist_ba import point_sharded_bundle_adjustment
 
         return point_sharded_bundle_adjustment(self.cfg.cam, prob, self._ba_mesh, iters=iters,
@@ -516,12 +550,13 @@ class Tracker:
 
     # ------------------------------------------- global BA (async, abortable)
 
-    def _gba_job(self, m_snap: MapState, gen: int, iters: int, ready):
-        """Global BA over a map snapshot on the GBA thread, in chunks of 5 LM
-        iterations (`iters` rounded up to a multiple); a newer generation
-        aborts it between chunks (mbStopGBA). Returns (R, t, X, gen, the
-        snapshot's keyframe frame ids, validity and point watermark), or
-        None when aborted."""
+    def _gba_job(self, m_snap: MapState, gen: int, iters: int, ready, graphs: StepGraphs):
+        """Global BA over a map snapshot on the GBA thread (its LM iterations
+        through `graphs`, the GBA thread's), in chunks of 5 LM iterations
+        (`iters` rounded up to a multiple); a newer generation aborts it
+        between chunks (mbStopGBA). Returns (R, t, X, gen, the snapshot's
+        keyframe frame ids, validity and point watermark), or None when
+        aborted."""
         chunk = 5
         with self._on_stream(self._gba_stream, ready):
             mm = m_snap
@@ -529,20 +564,21 @@ class Tracker:
             while done < iters:
                 if gen != self._gba_generation:
                     return None
-                mm = self._global_ba(mm, iters=chunk)
+                mm = self._global_ba(mm, iters=chunk, graphs=graphs)
                 done += chunk
             return mm.kf_R, mm.kf_t, mm.pt_xyz, gen, m_snap.kf_frame_id, m_snap.kf_valid, m_snap.n_pt
 
     def _schedule_gba(self, m: MapState, iters: int = 10) -> MapState:
         """Global BA for a freshly corrected loop: synchronous without the
-        background threads, else handed to the GBA thread (a running one is
-        superseded by the generation bump and stops at its next chunk) and
-        the map returned as it is."""
+        background threads (through the mapping job's graphs: it runs in
+        the job), else handed to the GBA thread (a running one is superseded
+        by the generation bump and stops at its next chunk) and the map
+        returned as it is."""
         self._gba_generation += 1
         if self._gba_pool is None:
-            return self._global_ba(m, iters=iters)
+            return self._global_ba(m, iters=iters, graphs=self.map_graphs)
         self._gba_future = self._gba_pool.submit(self._gba_job, m, self._gba_generation, iters,
-                                                 self._ready_event())
+                                                 self._ready_event(), self.gba_graphs)
         return m
 
     def _poll_gba(self, m: MapState) -> MapState:
@@ -1324,6 +1360,7 @@ class Tracker:
         self._join_mapping()
         self._gba_generation += 1
         self._gba_future = None
+        self.gba_graphs = StepGraphs(self.device, self.metrics, stage="gba.capture")
         self.map = self._empty_map()
         self.state = TrackingState.NO_IMAGES_YET
         self.trajectory = []
