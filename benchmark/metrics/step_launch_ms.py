@@ -1,0 +1,19 @@
+"""Median over the window's frame-step frames (those whose stages hold
+frame.mm or frame.ref: tracked by the motion model or the reference
+keyframe, no keyframe inserted) of the host time the frame spent inside
+graph.replay(), its summed launch.* spans (the program's spans, recorded
+while it traces). No launch.* sample in the window, or no frame-step
+frame: nothing."""
+
+import statistics
+
+FRAME_STEP = ("frame.mm", "frame.ref")
+PREFIX = "launch."
+
+
+def read(ctx):
+    if not any(k.startswith(PREFIX) for k in ctx.get("stages", {})):
+        return None
+    per = [sum(v for k, v in fs.items() if k.startswith(PREFIX))
+           for fs in ctx.get("frame_stages", []) if any(k in fs for k in FRAME_STEP)]
+    return 1e3 * statistics.median(per) if per else None

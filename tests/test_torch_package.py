@@ -685,17 +685,28 @@ def test_loaded_map_localizes_on_card_as_on_cpu(tmp_path):
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):
     """torch_trace (jax_trace's counterpart) writes the block's profile as
-    a Chrome trace into its directory, and the profiler stays readable."""
+    a Chrome trace into its directory, and the profiler stays readable.
+    With a recorder, it traces during the block, and the block's spans are
+    in the same file on the profiler's timeline: the span's slice encloses
+    the product's."""
     import json
 
-    from tpuslam_torch.utils.metrics import torch_trace
+    from tpuslam_torch.utils.metrics import Metrics, torch_trace
 
-    with torch_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+    met = Metrics()
+    with torch_trace(str(tmp_path / "trace"), metrics=met) as prof:
+        with met.trace("product"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not met.tracing
     assert prof.trace_path.startswith(str(tmp_path / "trace"))
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
+    mm = [e for e in events if e.get("name") == "aten::mm" and e.get("ph") == "X"]
+    assert mm
+    (span,) = [e for e in events if e.get("cat") == "span"]
+    assert span["name"] == "product"
+    for e in mm:
+        assert span["ts"] <= e["ts"] and e["ts"] + e["dur"] <= span["ts"] + span["dur"]
     assert any("mm" in e.key for e in prof.key_averages())
 
 

@@ -160,7 +160,21 @@ class StepGraphs:
     def run(self, name: str, fn, static: dict, **inputs):
         """fn(**inputs, **static) through the key's static buffers: on a
         card a replay of its graph (captured on first use), elsewhere a
-        call. Returns fn's outputs as new tensors."""
+        call. Returns fn's outputs as new tensors.
+
+        With the recorder tracing, span `seg.<name>` covers the whole run
+        (copy-in, replay or call, clones) and, on a card, its child
+        `launch.<name>` covers graph.replay() alone, with the event pair
+        that gives `dev.launch.<name>`: the stream's time from the
+        replay's start to its end, a wait for the launch to reach the card
+        included."""
+        met = self.metrics
+        if met is None or not met._on:
+            return self._run(name, fn, static, inputs, None)
+        with met.trace("seg." + name):
+            return self._run(name, fn, static, inputs, met)
+
+    def _run(self, name: str, fn, static: dict, inputs: dict, met):
         self.runs += 1
         leaves = []
         parts = {k: _flatten(v, k, leaves) for k, v in inputs.items()}
@@ -174,7 +188,11 @@ class StepGraphs:
             entry = self._graphs.get(key)
             if entry is None:
                 entry = self._capture(key, fn, args, static)
-            entry.graph.replay()
+            if met is None:
+                entry.graph.replay()
+            else:
+                with met.trace("launch." + name, device=self.device, timed=True):
+                    entry.graph.replay()
             self.replays += 1
             for counter, n in zip(_COUNTERS, entry.launches):
                 if n:  # no write where nothing launched: another thread may be counting
@@ -217,7 +235,7 @@ class StepGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(dev)
-        timer = self.metrics.stage(self.stage) if self.metrics is not None else contextlib.nullcontext()
+        timer = self.metrics.span(self.stage) if self.metrics is not None else contextlib.nullcontext()
         with timer:
             t0 = time.perf_counter()
             cur = torch.cuda.current_stream(dev)

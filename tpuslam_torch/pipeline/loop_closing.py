@@ -27,7 +27,6 @@ device, so the count does not grow with the number of neighbours.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import os
 import warnings
@@ -61,7 +60,7 @@ from tpuslam_torch.place.vocabulary import (
 )
 from tpuslam_torch.sfm.initializer import draw_picks
 from tpuslam_torch.sfm.sim3solver import optimize_sim3, sim3_chi2_inliers, sim3_ransac
-from tpuslam_torch.utils.metrics import Metrics
+from tpuslam_torch.utils.metrics import Metrics, traced
 
 COVIS_CONSISTENCY_TH = 3   # LoopClosing.cc:43
 MIN_KF_GAP = 10            # at least 10 keyframes since the last loop
@@ -72,13 +71,22 @@ DENSE_NODES = 192          # live keyframes up to which the graph is solved dens
 def _host(*xs) -> list:
     """Device tensors on the host in one device->host read (flattened into
     one float64 buffer, then cut back into numpy arrays of their shapes)."""
-    flat = torch.cat([x.reshape(-1).to(torch.float64) for x in xs]).cpu().numpy()
+    flat = torch.cat([x.reshape(-1).to(torch.float64) for x in xs])
+    with traced("read.loop"):
+        flat = flat.cpu().numpy()
     out, o = [], 0
     for x in xs:
         n = x.numel()
         out.append(flat[o:o + n].reshape(tuple(x.shape)))
         o += n
     return out
+
+
+def _count(x: torch.Tensor) -> int:
+    """A device scalar (a count, or a flag) on the host: the Sim3 stage's
+    reads."""
+    with traced("read.sim3"):
+        return int(x)
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -119,7 +127,6 @@ class LoopCloser:
         # (P,) int32 on the map's device, for the tracker's live references.
         self.last_point_remap: Optional[torch.Tensor] = None
         self.metrics = Metrics()
-        self.stage_sync = False
         self.pose_graph_stats: dict = {}
         # The essential graph's runner (optimize_pose_graph's `run`): None
         # runs each solve's GN segments and CG blocks through `graphs`, the
@@ -154,6 +161,7 @@ class LoopCloser:
         lc.generator = torch.Generator()
         lc.generator.set_state(self.generator.get_state())
         lc.metrics, lc.pose_graph_stats, lc.last_point_remap = Metrics(), {}, None
+        lc.stage_sync = self.stage_sync
         return lc
 
     def _run(self, dev: torch.device):
@@ -165,12 +173,20 @@ class LoopCloser:
             self.graphs = StepGraphs(dev, self.metrics, stage="loop.capture")
         return self.graphs.run
 
-    @contextlib.contextmanager
+    @property
+    def stage_sync(self) -> bool:
+        """Each stage synchronizes its stream at its end (the recorder's
+        flag, shared with a tracker that owns the closer)."""
+        return self.metrics.stage_sync
+
+    @stage_sync.setter
+    def stage_sync(self, on: bool):
+        self.metrics.stage_sync = on
+
     def _stage(self, name: str, dev: torch.device):
-        with self.metrics.stage(name):
-            yield
-            if self.stage_sync and dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()  # this thread's stream only
+        """Time a stage on `dev`; with stage_sync, the calling thread's
+        stream is synchronized at its end (Metrics.span)."""
+        return self.metrics.span(name, device=dev, sync=True)
 
     def _draw_picks(self, n_hyp: int, size: int, valid: torch.Tensor) -> torch.Tensor:
         """The Sim3 RANSAC's index sets (128 x 3), from the closer's generator."""
@@ -396,7 +412,7 @@ class LoopCloser:
         idx, _, ok = match_nn_ratio(m.kf_kp_desc[kf_cur], m.kf_kp_desc[kf_loop], pair,
                                     max_dist=50, nn_ratio=0.75)
         ok = rotation_consistency_mask(m.kf_kp_angle[kf_loop][idx], m.kf_kp_angle[kf_cur], ok)
-        if int(ok.sum()) < self.min_sim3_inliers:
+        if _count(ok.sum()) < self.min_sim3_inliers:
             return None
 
         def match_arrays(idx):
@@ -410,7 +426,7 @@ class LoopCloser:
         res = sim3_ransac(cam.K, X1, X2, uv1, uv2, 9.21 * sigma2_1, 9.21 * sigma2_2, ok,
                           picks=self._draw_picks(128, 3, ok), fix_scale=self.fix_scale,
                           min_inliers=self.min_sim3_inliers)
-        if not bool(res.success):
+        if not _count(res.success):
             return None
 
         # Widen with mutual guided projection (SearchBySim3), then refine.
@@ -426,13 +442,13 @@ class LoopCloser:
         s, R, t, inl, n_inl = optimize_sim3(cam.K, res.s, res.R, res.t, X1, X2, uv1, uv2,
                                             1.0 / sigma2_1, 1.0 / sigma2_2, merged_ok,
                                             fix_scale=self.fix_scale)
-        if int(n_inl) < self.min_sim3_inliers:
+        if _count(n_inl) < self.min_sim3_inliers:
             return None
 
         # >= 40 matches with the loop neighbourhood's projected points.
         nb_hit, match_pt, nb_mask = self._neighborhood_matches(m, cam, kf_cur, kf_loop, s, R, t, covis)
         sim3_ok = merged_ok & inl
-        if int((nb_hit | sim3_ok).sum()) < self.min_total_matches:
+        if _count((nb_hit | sim3_ok).sum()) < self.min_total_matches:
             return None
         # mvpCurrentMatchedPoints: the Sim3 inliers take precedence.
         sim3_pt = torch.where(sim3_ok, obs_l[merged_idx], -1)

@@ -74,6 +74,7 @@ from tpuslam_torch.pipeline._index import (
     sf_pow,
 )
 from tpuslam_torch.pipeline.graphs import call_segment
+from tpuslam_torch.utils.metrics import traced
 
 
 def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor, scale_factor: float, n_levels: int):
@@ -494,7 +495,8 @@ def compose_track_frame(run, cam: PinholeCamera, m: MapState, last_feats: FrameF
                 m=map_fields(m, MM_MAP_FIELDS), last_feats=last_feats, last_obs=last_obs,
                 last_R=last_R, last_t=last_t, vel_R=vel_R, vel_t=vel_t, feats=feats,
                 inv_sigma2_table=inv_sigma2_table)
-            mm_ok = bool(ok)  # the verdict: one read
+            with traced("read.verdict"):
+                mm_ok = bool(ok)  # the verdict: one read
             if mm_ok:
                 break
     if mm_ok:
@@ -1334,7 +1336,8 @@ def compose_mapping_front(run, cam: PinholeCamera, m: MapState, ki, inv_sigma2_t
     nbs, pairs, counts, tri, fused = run(
         "map_head", map_head_segment, dict(nn_tri=nn_tri, nn_fuse=nn_fuse, fuse_hop=fuse_hop),
         m=map_fields(m, MAP_HEAD_FIELDS), ki=ki)
-    n_nb, n_ext = (int(n) for n in counts.cpu())  # the one read
+    with traced("read.map_lengths"):
+        n_nb, n_ext = (int(n) for n in counts.cpu())  # the one read
     c = _PAIRS_PER_CHUNK
     geo = dict(cam=cam, scale_factor=scale_factor, n_levels=n_levels)
     for i in range(0, n_nb, c):

@@ -83,7 +83,9 @@ class System:
     def track_monocular(self, img, timestamp: float):
         """One grayscale frame (an (H, W) array or tensor); returns T_cw (R,
         t) as numpy, or None."""
-        out = self.tracker.track_monocular(self._input(img), self._frame_id(timestamp))
+        frame_id = self._frame_id(timestamp)
+        with self.tracker._frame(frame_id):
+            out = self.tracker.track_monocular(self._input(img), frame_id)
         self._push_viewer()
         return out
 
@@ -91,7 +93,8 @@ class System:
         """One rectified grayscale pair; returns T_cw (R, t) as numpy, or
         None."""
         frame_id = self._frame_id(timestamp)
-        out = self.tracker.track_stereo(self._input(img_left), self._input(img_right), frame_id)
+        with self.tracker._frame(frame_id):
+            out = self.tracker.track_stereo(self._input(img_left), self._input(img_right), frame_id)
         self._push_viewer()
         return out
 
@@ -100,7 +103,8 @@ class System:
         depth_map_factor converts to metres); returns T_cw (R, t) as numpy,
         or None."""
         frame_id = self._frame_id(timestamp)
-        out = self.tracker.track_rgbd(self._input(img), self._input(depth), frame_id)
+        with self.tracker._frame(frame_id):
+            out = self.tracker.track_rgbd(self._input(img), self._input(depth), frame_id)
         self._push_viewer()
         return out
 
@@ -110,8 +114,10 @@ class System:
         return frame_id
 
     def _input(self, a) -> torch.Tensor:
-        """An array or tensor as float32 on the tracker's device."""
-        return torch.as_tensor(a, dtype=torch.float32).to(self.tracker.device)
+        """An array or tensor as float32 on the tracker's device (span
+        `sys.upload` with tracing on: the frame span encloses it)."""
+        with self.tracker.metrics.trace("sys.upload"):
+            return torch.as_tensor(a, dtype=torch.float32).to(self.tracker.device)
 
     @property
     def state(self) -> TrackingState:

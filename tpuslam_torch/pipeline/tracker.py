@@ -90,7 +90,7 @@ from tpuslam_torch.place.database import SparseBow, SparseKeyFrameDatabase
 from tpuslam_torch.place.vocabulary import sparse_bow_vector, vocabulary_from_arrays
 from tpuslam_torch.sfm.initializer import draw_picks, initialize_two_view
 from tpuslam_torch.sfm.pnp import pnp_ransac
-from tpuslam_torch.utils.metrics import Metrics
+from tpuslam_torch.utils.metrics import Metrics, traced
 
 
 class TrackingState(enum.Enum):
@@ -204,9 +204,10 @@ class Tracker:
                                        dtype=torch.float32, device=self.device)
         self._init_orb = dataclasses.replace(config.orb, n_features=self.kp_capacity)
         self.generator = torch.Generator().manual_seed(config.seed)
-        # Block at each mapping stage's end so the stage timers hold device time.
-        self.stage_sync = False
-        self.metrics = Metrics()
+        # Stages, spans and counters; its stage_sync and tracing are the
+        # tracker's (the properties below).
+        self.metrics = Metrics(self.device)
+        self._kind = "none"  # how the current frame was tracked: the frame span's kind
         # graph_replays: steady-state frames whose step ran as graph
         # replays; graph_captures: graphs captured. map_jobs: keyframe
         # jobs (_mapping_compute); map_graph_replays: those whose segments
@@ -215,8 +216,7 @@ class Tracker:
         # global-BA LM iterations; gba_graph_replays: those replayed as
         # graphs (all of them on a card); gba_graph_captures: the global
         # BA's captures.
-        self.stats = {"dispatches": 0, "syncs": 0, "fused_frames": 0, "slow_frames": 0,
-                      "graph_replays": 0, "graph_captures": 0, "map_jobs": 0,
+        self.stats = {"dispatches": 0, "graph_replays": 0, "graph_captures": 0, "map_jobs": 0,
                       "map_graph_replays": 0, "map_graph_captures": 0, "gba_iters": 0,
                       "gba_graph_replays": 0, "gba_graph_captures": 0}
         # The tracking thread's segments (frame step, keyframe insertion,
@@ -328,17 +328,50 @@ class Tracker:
     @staticmethod
     def _fetch(*scalars) -> np.ndarray:
         """Several device scalars in one device->host read."""
-        return torch.stack([torch.as_tensor(s).to(torch.float32) for s in scalars]).cpu().numpy()
+        packed = torch.stack([torch.as_tensor(s).to(torch.float32) for s in scalars])
+        with traced("read.scalars"):
+            return packed.cpu().numpy()
+
+    @property
+    def stage_sync(self) -> bool:
+        """Each stage synchronizes the calling thread's stream at its end,
+        so its sample holds device time (the flag is the recorder's, shared
+        with the loop closer). On, it turns tracing on too."""
+        return self.metrics.stage_sync
+
+    @stage_sync.setter
+    def stage_sync(self, on: bool):
+        self.metrics.stage_sync = on
+
+    @property
+    def tracing(self) -> bool:
+        """The recorder keeps spans with parents, frame kinds, the graphs'
+        replays, the host's reads and the uploads, and on a card each
+        span's device time from an event pair, without synchronizing
+        (utils/metrics.py). Off, each such site costs one attribute test."""
+        return self.metrics.tracing
+
+    @tracing.setter
+    def tracing(self, on: bool):
+        self.metrics.tracing = on
+
+    def _stage(self, name: str):
+        """Time a stage; with stage_sync, the calling thread's stream is
+        synchronized at its end (Metrics.span)."""
+        return self.metrics.span(name, sync=True)
 
     @contextlib.contextmanager
-    def _stage(self, name: str):
-        """Time a stage; with stage_sync, synchronize the calling thread's
-        stream at its end (not the device: a mapping stage must not wait
-        for tracking)."""
-        with self.metrics.stage(name):
+    def _frame(self, frame_id: int):
+        """A frame's root span (tracing on, and none open yet: System opens
+        it around the uploads). Its kind, set as it ends: how the frame was
+        tracked (_kind: mm, ref, retry, reloc, lost, init), with ".kf" when
+        a keyframe was inserted."""
+        kf0 = self.metrics.counters.get("frames.keyframe", 0)
+        with self.metrics.frame(frame_id) as f:
             yield
-            if self.stage_sync and self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            if f is not None:
+                kf = self.metrics.counters.get("frames.keyframe", 0) > kf0
+                f.kind = self._kind + (".kf" if kf else "")
 
     def _ready_event(self):
         """An event on the calling thread's stream (None on the CPU): a
@@ -390,7 +423,9 @@ class Tracker:
     @staticmethod
     def _pose_np(R: torch.Tensor, t: torch.Tensor):
         """(R, t) on the host in one device->host read."""
-        p = torch.cat([R.reshape(-1), t.reshape(-1)]).cpu().numpy()
+        packed = torch.cat([R.reshape(-1), t.reshape(-1)])
+        with traced("read.pose"):
+            p = packed.cpu().numpy()
         return p[:9].reshape(3, 3), p[9:12]
 
     def _record_pose(self, frame_id, R, t, lost=False):
@@ -683,7 +718,7 @@ class Tracker:
         # depth gates), the slow-frame retry too.
         th_depth, depth = (0.0, False) if img is not None else (self._th_depth, self._depth_mode)
         replays = self.graphs.replays
-        with self.metrics.stage("track.dispatch"):
+        with self.metrics.span("track.dispatch"):
             if img is not None:
                 feats, *out = steps.fused_track_frame_image(
                     cfg.cam, cfg.orb, self.map, img, self._last_feats, self._last_obs,
@@ -699,14 +734,13 @@ class Tracker:
         self.stats["dispatches"] += 1
         self.stats["graph_replays"] += self.graphs.replays > replays
         self.stats["graph_captures"] = self.graphs.captures
-        with self.metrics.stage("track.fetch"):
+        with self.metrics.span("track.fetch"), self.metrics.trace("read.fetch"):
             p = packed.cpu().numpy()  # the per-frame device->host read
-        self.stats["syncs"] += 1
         used_mm = p[steps.FUSED_USED_MM] > 0.5
         self.metrics.inc("frames.motion_model" if used_mm else "frames.reference_kf")
 
         if p[steps.FUSED_ACCEPT] > 0.5:
-            self.stats["fused_frames"] += 1
+            self._kind = "mm" if used_mm else "ref"
             self.map = self.map._replace(pt_visible=pt_visible, pt_found=pt_found)
             self._velocity = (vel_R2, vel_t2)
             self._last_R, self._last_t = R, t
@@ -733,14 +767,15 @@ class Tracker:
             # The motion model passed its gates on a few aliased matches but
             # TrackLocalMap rejected the pose: retry through the reference
             # keyframe (the step without a velocity) before declaring LOST.
-            self.stats["slow_frames"] += 1
             R, t, obs, vel_R2, vel_t2, pt_visible, pt_found, packed = steps.fused_track_frame(
                 cfg.cam, self.map, self._last_feats, self._last_obs, self._last_R, self._last_t,
                 torch.eye(3, device=dev), torch.zeros(3, device=dev), False, feats, ref,
                 self.inv_sigma2, th_depth, float(thr), scale_factor=cfg.orb.scale_factor,
                 n_levels=cfg.orb.n_levels, depth=depth, **common)
-            p = packed.cpu().numpy()
+            with self.metrics.trace("read.fetch"):
+                p = packed.cpu().numpy()
             if p[steps.FUSED_ACCEPT] > 0.5:
+                self._kind = "retry"
                 n_tracked = int(p[steps.FUSED_N_TRACKED])
                 self.map = self.map._replace(pt_visible=pt_visible, pt_found=pt_found)
                 self._velocity = (vel_R2, vel_t2)
@@ -818,7 +853,7 @@ class Tracker:
         # the keyframe is inserted on top of it.
         if self._mapping_future is not None and not self._mapping_future.done():
             self.metrics.inc("map.insert_waits")
-            with self.metrics.stage("map.insert_wait"):
+            with self.metrics.span("map.insert_wait", timed=False):
                 self._join_mapping()
         else:
             self._join_mapping()
@@ -949,7 +984,7 @@ class Tracker:
     def _mapping_job(self, m: MapState, ki: int, ready):
         """One keyframe's mapping on the mapping thread, on its own stream:
         _mapping_compute here, or the worker process's. Returns (map, ki)."""
-        with self.metrics.stage("map.job"), self._on_stream(self._map_stream, ready):
+        with self.metrics.span("map.job", timed=False), self._on_stream(self._map_stream, ready):
             if self._remote_mapper is None:
                 return self._mapping_compute(m, ki), ki
             m2, pt_remap, bow_rows, voc_blob = self._remote_mapper.process(m, ki, self._depth_mode)
@@ -1016,7 +1051,9 @@ class Tracker:
         g = self.map_graphs
         runs, replays = g.runs, g.replays
         m = self._poll_gba(m)
-        if int(m.n_pt) >= int(0.95 * m.capacity_pt):
+        with self.metrics.trace("read.compact"):  # the compaction trigger
+            full = int(m.n_pt) >= int(0.95 * m.capacity_pt)
+        if full:
             with self._stage("map.compact"):
                 m = self._compact(m)
         self._mapping_interrupt.clear()
@@ -1243,6 +1280,7 @@ class Tracker:
                 n_m, n_tot, n_map = self._fetch(n_m, n_tot, n_map)
                 # >= 20 matches before the optimization, > 20 map + VO inliers.
                 if n_m >= 20 and n_tot > 20:
+                    self._kind = "mm"
                     return R, t, ct, cx, int(n_map)
             return None
 
@@ -1261,6 +1299,7 @@ class Tracker:
                     ct = torch.where(obs >= 0, obs, -2)
                     cx = torch.where((obs >= 0)[:, None], m.pt_xyz[obs.clamp(min=0).long()], 0.0)
                     mm = (R, t, ct, cx, int(n_inl))
+                    self._kind = "ref"
         else:
             # mbVO: the motion model and relocalization both; relocalization wins.
             mm = run_motion_model() if self._velocity is not None else None
@@ -1272,6 +1311,7 @@ class Tracker:
             return False
 
         if used_reloc:
+            self._kind = "reloc"
             # _relocalize polished the pose with TrackLocalMap and set the
             # frame state; only the VO bookkeeping is left.
             R, t = self._last_R, self._last_t
@@ -1382,28 +1422,32 @@ class Tracker:
     def track_monocular(self, img: torch.Tensor, frame_id: int):
         """One (H, W) float32 grayscale frame on the tracker's device;
         returns T_cw (R, t) as numpy, or None."""
-        self.n_frames += 1
-        if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
-            self.state = TrackingState.NOT_INITIALIZED
-            if self._try_initialize(self._frame_features(img, init=True), frame_id):
-                return self._pose_out()
-            return None
-        self._last_pose_np = None
-        if self.state == TrackingState.OK:
-            return self._after_ok_track(self._track_frame(None, frame_id, img=img), frame_id)
-        return self._lost_track(self._frame_features(img), frame_id)
+        with self._frame(frame_id):
+            self.n_frames += 1
+            if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
+                self.state = TrackingState.NOT_INITIALIZED
+                self._kind = "init"
+                if self._try_initialize(self._frame_features(img, init=True), frame_id):
+                    return self._pose_out()
+                return None
+            self._last_pose_np = None
+            if self.state == TrackingState.OK:
+                return self._after_ok_track(self._track_frame(None, frame_id, img=img), frame_id)
+            return self._lost_track(self._frame_features(img), frame_id)
 
     def track_monocular_features(self, feats: FrameFeatures, frame_id: int):
         """track_monocular over precomputed FrameFeatures, once initialized."""
-        self.n_frames += 1
-        self._last_pose_np = None
-        if self.state == TrackingState.OK:
-            return self._after_ok_track(self._track_frame(feats, frame_id), frame_id)
-        return self._lost_track(feats, frame_id)
+        with self._frame(frame_id):
+            self.n_frames += 1
+            self._last_pose_np = None
+            if self.state == TrackingState.OK:
+                return self._after_ok_track(self._track_frame(feats, frame_id), frame_id)
+            return self._lost_track(feats, frame_id)
 
     def _after_ok_track(self, ok: bool, frame_id: int):
         if ok:
             return self._pose_out()
+        self._kind = "lost"
         self.state = TrackingState.LOST
         # Lost right after initialization: a map of <= 5 keyframes is not
         # worth relocalizing against; bootstrap again.
@@ -1416,6 +1460,7 @@ class Tracker:
     def _lost_track(self, feats: FrameFeatures, frame_id: int):
         with self._stage("track.relocalize"):
             ok = self._relocalize(feats, frame_id)
+        self._kind = "reloc" if ok else "lost"
         if ok:
             self.state = TrackingState.OK
             self._record_pose(frame_id, self._last_R, self._last_t)
@@ -1426,28 +1471,32 @@ class Tracker:
     def track_stereo(self, img_left: torch.Tensor, img_right: torch.Tensor, frame_id: int):
         """One rectified pair of (H, W) float32 images on the tracker's
         device; returns T_cw (R, t) as numpy, or None."""
-        with self._stage("track.stereo_features"):
-            feats = self._frame_features_stereo(img_left, img_right)
-        return self._track_with_depth(feats, frame_id)
+        with self._frame(frame_id):
+            with self._stage("track.stereo_features"):
+                feats = self._frame_features_stereo(img_left, img_right)
+            return self._track_with_depth(feats, frame_id)
 
     def track_rgbd(self, img: torch.Tensor, depth_map: torch.Tensor, frame_id: int):
         """One (H, W) float32 image and its registered (H, W) float32 depth
         image (raw units, times depth_map_factor gives metres) on the
         tracker's device; returns T_cw (R, t) as numpy, or None."""
-        with self._stage("track.rgbd_features"):
-            feats = self._frame_features_rgbd(img, depth_map)
-        return self._track_with_depth(feats, frame_id)
+        with self._frame(frame_id):
+            with self._stage("track.rgbd_features"):
+                feats = self._frame_features_rgbd(img, depth_map)
+            return self._track_with_depth(feats, frame_id)
 
     def track_depth_features(self, feats: FrameFeatures, frame_id: int):
         """Stereo / RGB-D tracking over precomputed FrameFeatures with
         u_right and depth filled (the multi-stream front end's entry)."""
-        return self._track_with_depth(feats, frame_id)
+        with self._frame(frame_id):
+            return self._track_with_depth(feats, frame_id)
 
     def _track_with_depth(self, feats: FrameFeatures, frame_id: int):
         self.n_frames += 1
         self._last_pose_np = None
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
             self.state = TrackingState.NOT_INITIALIZED
+            self._kind = "init"
             if self._initialize_with_depth(feats, frame_id):
                 return self._pose_out()
             return None

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from tpuslam_torch.geometry.triangulation import triangulate_dlt
+from tpuslam_torch.utils.metrics import traced
 
 CHI2_H = 5.991
 CHI2_F = 3.841
@@ -46,7 +47,9 @@ def draw_picks(n_hyp: int, size: int, valid: torch.Tensor, generator=None) -> to
     the JAX package's jax.random.randint, drawn from `generator` (a CPU
     torch.Generator) and moved to valid's device without a host read."""
     hi = torch.clamp(valid.sum(), min=size).to(torch.float32)
-    u = torch.rand((n_hyp, size), generator=generator).to(valid.device)
+    u = torch.rand((n_hyp, size), generator=generator)
+    with traced("read.picks"):  # a synchronising copy from pageable host memory
+        u = u.to(valid.device)
     return torch.minimum(torch.floor(u * hi), hi - 1).to(torch.int64)
 
 

@@ -15,6 +15,7 @@ import torch
 from tpuslam_torch.geometry.se3 import quat_to_rotmat
 from tpuslam_torch.geometry.sim3 import sim3_apply, sim3_compose, sim3_exp, sim3_inverse
 from tpuslam_torch.sfm.initializer import _pick
+from tpuslam_torch.utils.metrics import traced
 
 
 def horn_sim3(P1: torch.Tensor, P2: torch.Tensor, w: torch.Tensor, fix_scale: bool = False):
@@ -38,7 +39,8 @@ def horn_sim3(P1: torch.Tensor, P2: torch.Tensor, w: torch.Tensor, fix_scale: bo
         torch.stack([szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy], dim=-1),
         torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], dim=-1),
     ], dim=-2)
-    _, eigvec = torch.linalg.eigh(N)
+    with traced("read.sim3"):  # cuSOLVER checks its status on the host
+        _, eigvec = torch.linalg.eigh(N)
     q_wxyz = eigvec[..., :, 3]  # the largest eigenvalue's
     R = quat_to_rotmat(torch.stack([q_wxyz[..., 1], q_wxyz[..., 2], q_wxyz[..., 3],
                                     q_wxyz[..., 0]], dim=-1))
@@ -71,7 +73,8 @@ def sim3_chi2_inliers(K, s, R, t, X1, X2, uv1, uv2, chi2_1, chi2_2, valid):
     X1 through S21 against uv2 and X2 through S21^-1 against uv1, both
     squared errors under their gates. Batched over the leading dims of s,
     R (..., 3, 3) and t (..., 3)."""
-    K = K.to(X1.device)
+    with traced("read.sim3"):  # the host's K copied to the card: a synchronising copy
+        K = K.to(X1.device)
     X1in2 = s[..., None, None] * (X1 @ R.transpose(-1, -2)) + t[..., None, :]
     e2 = torch.sum((_project(K, X1in2) - uv2) ** 2, dim=-1)
     sinv = 1.0 / s
@@ -125,7 +128,8 @@ def optimize_sim3(K, s0, R0, t0, X1, X2, uv1, uv2, inv_sigma2_1, inv_sigma2_2, v
     (no early exit). The (4N, 7) Jacobian is forward-mode
     (torch.func.jacfwd at the zero tangent), as jax.jacfwd in the JAX
     package. Returns (s, R, t, inliers, n_inliers)."""
-    K = K.to(X1.device)
+    with traced("read.sim3"):  # the host's K copied to the card: a synchronising copy
+        K = K.to(X1.device)
     zero = torch.zeros(7, device=X1.device)
     eye7 = torch.eye(7, device=X1.device)
 
