@@ -12,6 +12,14 @@ Phases, any failure exits non-zero:
      gather_patches on the uint8 and float32 atlases at 4, 5, 4000 and 4001
      windows; then a child process whose window leaves the atlas must die
      of the kernel's device-side assert;
+  pose kernel: pose_optimization's kernel (csrc/pose_lm.cu) against
+     pose_optimization_plain on the same card tensors at the frame step's
+     shapes (B=1 N=4000 stereo and mono edges, B=1 N=2000 mono, B=4 N=2000
+     mono; KITTI's camera): poses within 1e-4, masks equal but on edges
+     within a relative 1e-4 of their chi2 threshold; then the times of
+     both in turns (per call and the device's alone), the kernel at one
+     edge (its latency floor), the bytes and flops bound, and the device
+     time per LM iteration;
   4. slice: track_step_batched at 640x480, 1000 ORB features, B=4 streams,
      L=4096 local-map points on a coherent synthetic scene, through a
      StepGraphs (the step one CUDA graph, captured at the first call); every
@@ -26,7 +34,8 @@ Phases, any failure exits non-zero:
      subset 16384, candidate cap 8192), along a session built by
      testing.build_depth_session: every frame accepted within 1 cm / 0.2
      deg of ground truth, both branches taken, both kernels launched on
-     every frame, and one mid-session state through the port on the CPU
+     every frame and pose_optimization's at least twice (mm or ref, then
+     local), and one mid-session state through the port on the CPU
      agreeing with the card;
   graphs: the map slice's 161-frame path again, each frame's step run
      both ways in turns on the same state: eagerly (fused_track_frame_image)
@@ -69,8 +78,9 @@ Phases, any failure exits non-zero:
      trajectory: it must initialize within the first 10 frames, end OK,
      track >= 95% of the frames after initialization, hold >= 10 valid
      keyframes with points that mapping_front made, keep the Sim3-aligned
-     ATE below 3% of the path's span, and launch both kernels on every
-     frame, and close no loop (the path revisits nothing); the loop stage's
+     ATE below 3% of the path's span, launch FAST+NMS and the gather on
+     every frame and the pose kernel at least twice on every tracked frame
+     (mm or ref, then local), and close no loop (the path revisits nothing); the loop stage's
      ms and device->host reads per keyframe are printed. Then, on the
      finished map: device->host reads of a motion-model
      and a reference-keyframe frame (<= 2 and <= 1, or the run fails) and of
@@ -95,14 +105,16 @@ Phases, any failure exits non-zero:
      on) at the default capacities over 60 rectified pairs of a 4x-scale StepWallScene, the
      right image rendered 0.537 m along the camera's x axis: initialized on
      the first frame, OK at the end, >= 95% tracked, the span within 5% and
-     the rigid ATE below 3% of it, both kernels on every frame, no loop
+     the rigid ATE below 3% of it, the kernels on every frame as in mono
+     SLAM, no loop
      closed (the loop stage's ms and reads per keyframe printed). Prints ms per
      frame by kind (the keyframe frames split into the stereo front end,
      mapping_front, the local-BA chunks and the rest), the front end alone
      (it must make no device->host read), reads by frame kind, peak memory,
      one frame's front end on the CPU against the card, then localization
      mode over 20 frames past the mapped region (the map must not change,
-     >= 75% tracked; whether VO mode engaged), each frame eagerly and
+     >= 75% tracked, each tracked frame through the pose kernel; whether VO
+     mode engaged), each frame eagerly and
      graphed from the same state (torch.equal, ms both ways), and the last
      frame again forced into mbVO (the motion model and the relocalization)
      both ways;
@@ -129,7 +141,8 @@ Phases, any failure exits non-zero:
      of a whole map's copy-in;
   MultiTracker: track_stereo over 2 KITTI-sized streams for 12 frames, one
      FAST+NMS launch per batched extraction of the 4 images (the batched
-     front end one CUDA graph), every frame of every stream tracked within
+     front end one CUDA graph), past the first frame at least two pose
+     kernels a stream, every frame of every stream tracked within
      the stereo gates, each frame first run eagerly and graphed from the
      same state (every stream's state torch.equal, ms both ways) (RGB-D and
      MultiTracker keep loop closing off, so the phases stay inside the time
@@ -174,7 +187,8 @@ Phases, any failure exits non-zero:
      System on the card (and on the CPU, bit-equal), then 20 frames of the mono path localized against it: the
      first relocalized within 5 cm of the truth by the brute-force branch (a
      fresh System has no BoW database, as in the JAX package), >= 75%
-     tracked, the map unchanged, both kernels on every frame; one more frame
+     tracked, the map unchanged, each of the three kernels at least once a
+     localized frame; one more frame
      under utils.metrics.torch_trace (a Chrome trace written, its launches
      counted); detect_plane and topdown_layout on the loaded 200,000-slot
      map and remap_bilinear of a 752x480 EuRoC pair, each on the card
@@ -186,8 +200,11 @@ Phases, any failure exits non-zero:
      the RGB-D phase's gates, decode and track ms per frame, the viewer's ms
      and device->host reads per push.
   parallel: the mono session again with async_mapping (mapping and loop
-     closing on a background thread with its own stream) under the mono
-     gates and drained by export_trajectory, its ms per frame kind beside
+     closing on a background thread with its own stream), fed at the
+     camera's 30 fps (each frame's interval slept out, as ORB-SLAM2's
+     examples feed a dataset), under the mono gates and drained by
+     export_trajectory, the share of frames begun while a mapping job ran
+     and the keyframes declined because of it, its ms per frame kind beside
      the synchronous session's, the job's ms on its thread, the keyframe
      insertions that waited on a join, InterruptBA and the second local-BA
      chunks skipped, synchronising calls per thread, peak memory; the
@@ -251,6 +268,7 @@ from tpuslam_torch.ops.orb import (
 from tpuslam_torch.ops.patches import PSIZE, _gather_patches_cuda, gather_patches, gather_patches_plain
 from tpuslam_torch.optim import pose_graph
 from tpuslam_torch.optim.ba import bundle_adjustment
+from tpuslam_torch.optim.pose import pose_optimization, pose_optimization_plain
 from tpuslam_torch.parallel.dist_ba import distributed_bundle_adjustment, point_sharded_bundle_adjustment
 from tpuslam_torch.parallel.sharded_map import sharded_covisibility_weights, sharded_search_local_points
 from tpuslam_torch.ops.stereo import (
@@ -287,7 +305,9 @@ from tpuslam_torch.testing import (
     keep_mapping_inputs,
     mono_session,
     orbit_trajectory,
+    pose_disagreement,
     pose_errors,
+    pose_problem,
     render_frames,
     render_rgbd_frames,
     render_stereo_frames,
@@ -298,6 +318,8 @@ from tpuslam_torch.testing import (
 B, N_FEATURES, N_LOCAL = 4, 1000, 4096
 CAM = PinholeCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 CFG = ORBConfig(n_features=N_FEATURES)
+# The port's hand-written kernels on the main path, by name; each counts its launches.
+KERNELS = {"fast_nms": fast_nms, "gather_patches": gather_patches, "pose_optimization": pose_optimization}
 REPS = 20
 POSE_TOL = 1e-3  # CUDA vs CPU pose: float32 sums in another order
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 ops/s
@@ -319,6 +341,10 @@ MAP_T_TOL, MAP_R_TOL = 0.01, 0.2  # per frame, against ground truth (m, deg)
 # Mono SLAM: the map slice's trajectory through the port's System; 3 more
 # frames count reads on the finished map, then an earlier one relocalizes.
 MONO_FRAMES, MONO_INIT_BY, MONO_TRACKED = 100, 10, 0.95
+# The async mono session's camera rate, that of mono_session's timestamps
+# (i / 30 s): unpaced, the tracking thread outran a mapping job ~12 frames
+# to one and monocular NeedNewKeyFrame declined the keyframes it wanted.
+ASYNC_FPS = 30.0
 # ATE gate, a share of the path's span. tests/test_integration_mono.py holds
 # its 36-frame path (4.5 cm a frame) to 2%, as tests/test_torch_tracker_mono.py
 # does the port; on this path (2 cm a frame, 100 frames) the ATE moved from
@@ -551,6 +577,61 @@ def phase_kernels(imgs: torch.Tensor, rng):
     return err
 
 
+# The frame step's pose problems: (name, batch, edges, share of stereo edges).
+POSE_SHAPES = (("B=1 N=4000 stereo", (), 4000, 0.6), ("B=1 N=2000 mono", (), 2000, 0.0),
+               ("B=4 N=2000 mono", (B,), 2000, 0.0))
+POSE_ITERS = 40  # pose_optimization's 4 rounds of 10
+
+
+def pose_bound_ms(obs) -> tuple:
+    """(ms, "bytes" or "operations"): the inputs read once (7 floats and a
+    byte an edge), the outputs written once, against ~90 flops an edge and
+    iteration outside the Jacobian rows (the projection and residuals twice,
+    the weights) and ~69 for each of its 2 (mono) or 3 (stereo) rows (the
+    row, 21 entries of H and 6 of b)."""
+    n_edges = obs.valid.numel()
+    n_stereo = int((obs.uvr[..., 2] >= 0).sum())
+    nbytes = n_edges * (7 * 4 + 1) + n_edges + obs.valid[..., 0].numel() * (12 * 4 + 12 * 4 + 8)
+    flops = POSE_ITERS * (n_edges * (90 + 2 * 69) + n_stereo * 69)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_pose_kernel(smi: str) -> dict:
+    """pose_optimization's kernel against its plain version on the card, then
+    both timed in turns (see the module docstring). Returns {shape: times}."""
+    res = {}
+    for name, batch, n, share in POSE_SHAPES:
+        R0, t0, obs = pose_problem(KITTI_CAM, 17, batch, n, stereo_share=share, device="cuda")
+        before = pose_optimization.launches
+        got = pose_optimization(KITTI_CAM, R0, t0, obs)
+        torch.cuda.synchronize()
+        if pose_optimization.launches != before + 1:
+            raise AssertionError("pose_optimization did not launch its kernel once")
+        d = pose_disagreement(KITTI_CAM, got, pose_optimization_plain(KITTI_CAM, R0, t0, obs), obs)
+        log(f"pose_optimization {name}: against the plain version {d}")
+        if not (d["dR"] <= 1e-4 and d["dt"] <= 1e-4 and d["counts_match"] and d["mask_differs_far"] == 0):
+            raise AssertionError(f"pose_optimization {name}: the kernel and the plain version disagree")
+        R1, t1, obs1 = pose_problem(KITTI_CAM, 17, batch, 1, stereo_share=share, device="cuda")
+        with launches_kept():
+            fns = [lambda: pose_optimization(KITTI_CAM, R0, t0, obs),
+                   lambda: pose_optimization_plain(KITTI_CAM, R0, t0, obs),
+                   lambda: pose_optimization(KITTI_CAM, R1, t1, obs1)]
+            per_call = cuda_ms_turns(fns)
+            dev = cuda_ms_turns(fns, ahead=True)
+        bound, by = pose_bound_ms(obs)
+        res[name] = dict(ms=per_call[0], device_ms=dev[0], plain_ms=per_call[1], plain_device_ms=dev[1],
+                         floor_ms=dev[2], bound_ms=bound, bound_by=by,
+                         iteration_us=dev[0] * 1e3 / POSE_ITERS, floor_iteration_us=dev[2] * 1e3 / POSE_ITERS)
+        log(f"  times on {smi} (CUDA-event medians of {REPS}, in turns): kernel {per_call[0]:.4f} ms "
+            f"per call, {dev[0]:.4f} ms device ({res[name]['iteration_us']:.2f} us an LM iteration); "
+            f"plain {per_call[1]:.3f} / {dev[1]:.3f} ms; the kernel at one edge (latency floor) "
+            f"{dev[2]:.4f} ms ({res[name]['floor_iteration_us']:.2f} us an iteration); bytes and flops "
+            f"bound {bound:.5f} ms ({by}), {bound / dev[0]:.2%} of it; {dev[2] / dev[0]:.1%} of the "
+            f"device time is the floor")
+    return res
+
+
 def phase_device_assert() -> None:
     """A window past the atlas, in a child process (it keeps the dead CUDA
     context): it must exit non-zero with the kernel's device-side assert."""
@@ -581,16 +662,15 @@ def phase_slice(inp: dict, smi: str):
     step)."""
     args = [array_to_tensor(inp[k], "cuda") for k in TRACK_STEP_ARGS]
     graphs = StepGraphs("cuda")
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     R2, t2, n_inl2, n_valid = track_step_batched(CAM, CFG, *args, run=graphs.run)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    launches = launch_counts()
     log(f"main path launches: {launches} (the warm-up before the capture and the first replay)")
-    if launches["fast_nms"] < 1 or launches["gather_patches"] < 1:
+    if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
 
     R2c, t2c, n_inl2c, n_validc = (x.cpu() for x in (R2, t2, n_inl2, n_valid))
@@ -647,11 +727,31 @@ def phase_slice(inp: dict, smi: str):
 def launches_kept():
     """The kernels' launch counters as they were before the block: the
     comparison runs inside it do not count as the main path's."""
-    before = (fast_nms.launches, gather_patches.launches)
+    before = launch_counts()
     try:
         yield
     finally:
-        fast_nms.launches, gather_patches.launches = before
+        for name, n in before.items():
+            KERNELS[name].launches = n
+
+
+def zero_launches() -> None:
+    for f in KERNELS.values():
+        f.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: f.launches for name, f in KERNELS.items()}
+
+
+def missing_kernels(kinds: list) -> list:
+    """The frames of frame_kinds(...) that did not launch fast_nms and
+    gather_patches, or, tracked, fewer than two pose kernels (the motion
+    model or the reference keyframe, then the local map): (index, kind,
+    launches)."""
+    return [(i, x["kind"], x["launches"]) for i, x in enumerate(kinds)
+            if x["launches"]["fast_nms"] < 1 or x["launches"]["gather_patches"] < 1
+            or (x["kind"] != "initialization" and x["launches"]["pose_optimization"] < 2)]
 
 
 def tree_equal(a, b) -> bool:
@@ -780,10 +880,10 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
     holds keyframe 0's)."""
     poses = orbit_trajectory(MAP_FRAMES, **MAP_POSES)
     per_frame = []
-    seen = {"fast_nms": 0, "gather_patches": 0}
+    seen = dict.fromkeys(KERNELS, 0)
 
     def on_frame(i, rec):
-        now = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+        now = launch_counts()
         per_frame.append({k: now[k] - seen[k] for k in now})
         seen.update(now)
 
@@ -792,8 +892,7 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
     def step(*args, **kwargs):
         return fused_track_frame_image(*args, **kwargs, run=graphs.run)
 
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     s = build_depth_session(scene, CAM, CFG, poses, MAP["K"], MAP["N_cap"], MAP["P"],
                             MAP_KF_EVERY, device=device, snapshot_at=MAP_SNAP,
@@ -801,7 +900,7 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    launches = launch_counts()
 
     # The local subset of the last frame, from its tracked matches.
     m = s.state.m
@@ -841,6 +940,8 @@ def phase_map(scene: StepWallScene, device: str = "cuda"):
         raise AssertionError("map slice: the motion-model and reference branches were not both taken")
     if any(d["fast_nms"] < 1 or d["gather_patches"] < 1 for d in per_frame):
         raise AssertionError(f"map slice: a frame did not launch both kernels: {per_frame}")
+    if any(d["pose_optimization"] < 2 for d in per_frame):
+        raise AssertionError(f"map slice: a frame ran fewer than two pose kernels: {per_frame}")
     if not np.isfinite(p).all() or p.shape[1] != steps.FUSED_LEN:
         raise AssertionError("map slice: packed result malformed")
 
@@ -989,8 +1090,7 @@ def session_recorder(tr, rec: list):
     kernels' launch counts and the state after each frame to `rec`."""
     def on_frame(i, out):
         rec.append(dict(counters=dict(tr.metrics.counters), state=tr.state.name,
-                        launches={"fast_nms": fast_nms.launches,
-                                  "gather_patches": gather_patches.launches}))
+                        launches=launch_counts()))
     return on_frame
 
 
@@ -1069,14 +1169,13 @@ def phase_graphs(scene: StepWallScene, smi: str, device: str = "cuda") -> dict:
                          equal=all(torch.equal(a, b) for a, b in zip(flat["eager"], flat["graphed"]))))
         return outs["graphed"]
 
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     s = build_depth_session(scene, CAM, CFG, poses, MAP["K"], MAP["N_cap"], MAP["P"], MAP_KF_EVERY,
                             device=device, snapshot_at=MAP_SNAP[2:], step=step, **MAP_STEP)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    launches = launch_counts()
     p = np.stack([f["packed"] for f in s.frames])
     log(f"graphs on {smi}: the map slice's {len(rows)} frames, each step eager and graphed in turns, in "
         f"{wall:.1f} s; launches of both ways {launches}; accepted {int((p[:, 0] > 0.5).sum())}/{len(p)}")
@@ -1388,8 +1487,7 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
     init_gba = keep_first_global_ba(tr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     rec, peaks = [], {}
     record = session_recorder(tr, rec)
 
@@ -1465,8 +1563,8 @@ def phase_mono(scene: StepWallScene, smi: str, work: str) -> dict:
         bad.append(f"{n_kf} keyframes, {mapped} mapped points")
     if not ate < MONO_ATE_SHARE * span:
         bad.append(f"ATE {ate:.4f} >= {MONO_ATE_SHARE:.0%} of {span:.3f}")
-    if any(x["launches"][k] < 1 for x in kinds for k in launches):
-        bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if missing_kernels(kinds):
+        bad.append(f"frames short of a kernel: {missing_kernels(kinds)}")
     bad += loop_stage_report("mono", tr, loop_reads, smi)
     bad += graph_report("mono", tr)
     bad += map_graph_report("mono", tr, session_recs)
@@ -1750,8 +1848,7 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
     feat_stage = f"track.{name}_features"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     rec = []
     host_jobs = keep_jobs_on_host(tr, {keep_job})
     map_recs = watch_map_jobs(tr)
@@ -1803,8 +1900,8 @@ def phase_depth(name: str, system: System, frames: list, poses, smi: str, front_
         bad.append(f"{name}: not initialized on the first frame")
     if tr.state != TrackingState.OK:
         bad.append(f"{name}: ended in {tr.state.name}")
-    if any(x["launches"][k] < 1 for x in kinds for k in launches):
-        bad.append(f"{name}: a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if missing_kernels(kinds):
+        bad.append(f"{name}: frames short of a kernel: {missing_kernels(kinds)}")
     bad += graph_report(name, tr)
     bad += map_graph_report(name, tr, session_recs)
     if bad:
@@ -1857,8 +1954,7 @@ def phase_localization(name: str, system: System, frames: list, poses, smi: str)
     frozen = {k: getattr(m0, k).clone() for k in ("pt_valid", "pt_xyz", "kf_valid", "kf_R", "kf_t",
                                                   "kf_obs_pt", "n_kf", "n_pt")}
     system.activate_localization_mode()
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     first = DEPTH_FRAMES + 3
     tracked, vo, ms, eager_ms, bad, io = 0, 0, [], [], [], None
     replays, n_cap = tr.graphs.replays, len(tr.graphs.captured)
@@ -1877,8 +1973,11 @@ def phase_localization(name: str, system: System, frames: list, poses, smi: str)
             io = cmp
         eager_ms.append(cmp["ms"]["eager"][0])
         tracker_restore(tr, state)
+        seen = launch_counts()
         (out, t_ms), = frame(i)
         tracked += out is not None
+        if out is not None and pose_optimization.launches == seen["pose_optimization"]:
+            bad.append(f"frame {i}: tracked without a pose kernel")
         vo += bool(tr._vo_mode)
         ms.append(t_ms)
     # The last frame again from the state before it, forced into mbVO: the
@@ -1893,7 +1992,7 @@ def phase_localization(name: str, system: System, frames: list, poses, smi: str)
     mbvo_path = tr.reloc_path
     tracker_restore(tr, end)
     system.deactivate_localization_mode()
-    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    launches = launch_counts()
     changed = [k for k, v in frozen.items() if not torch.equal(getattr(tr.map, k), v)]
     traj = tr.export_trajectory()
     _, _, (_, Ra, ta) = trajectory_ate([x for x in traj if x[0] < first], poses, fix_scale=True)
@@ -1941,8 +2040,7 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
     graphs = [mt.graphs] + [t.graphs for t in mt.trackers]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     per_frame, ms, eager_ms, missed, differ, io = [], [], [], [], [], None
     for i in range(MULTI_FRAMES):
         def call(i=i):
@@ -1964,15 +2062,15 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
             io = cmp
         eager_ms.append(cmp["ms"]["eager"][0])
         restore()
-        seen = (fast_nms.launches, gather_patches.launches)
+        seen = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = call()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        per_frame.append((fast_nms.launches - seen[0], gather_patches.launches - seen[1]))
+        per_frame.append(tuple(n - seen[k] for k, n in launch_counts().items()))
         missed += [(i, b) for b, o in enumerate(outs) if o is None]
-    launches = {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
+    launches = launch_counts()
     bad = []
     for b, tr in enumerate(mt.trackers):
         fails, summary = depth_gates(f"stream {b}", tr.export_trajectory(), paths[b], MULTI_FRAMES)
@@ -1981,7 +2079,7 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
     log(f"MultiTracker.track_stereo on {smi}: B={MULTI_B} streams at {KITTI_CAM.width}x{KITTI_CAM.height}, "
         f"{KITTI_ORB.n_features} features, {MULTI_FRAMES} frames: graphed {_ms(ms)} per batched frame, "
         f"eager {_ms(eager_ms)} (each frame both ways from the same state: "
-        f"{MULTI_FRAMES - len(differ)}/{MULTI_FRAMES} torch.equal); (fast_nms, gather_patches) launches "
+        f"{MULTI_FRAMES - len(differ)}/{MULTI_FRAMES} torch.equal); (fast_nms, gather_patches, pose_optimization) launches "
         f"per graphed frame {per_frame}; peak memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"  the batched front end: {mt.graphs.replays} replays, capture {captures_report(mt.graphs)}, graph "
@@ -1993,8 +2091,9 @@ def phase_multi(scene: StepWallScene, smi: str) -> dict:
         bad.append(f"graphed differs from eager at frames {differ}")
     if len(io["reads"]["graphed"]) > len(io["reads"]["eager"]):
         bad.append(f"reads graphed {io['reads']['graphed']} against eager {io['reads']['eager']}")
-    if any(f != 1 or g != 1 + MULTI_B for f, g in per_frame):
-        bad.append(f"launches per frame {per_frame}, want (1, {1 + MULTI_B})")
+    if any(f != 1 or g != 1 + MULTI_B or (i and p < 2 * MULTI_B) for i, (f, g, p) in enumerate(per_frame)):
+        bad.append(f"launches per frame {per_frame}, want (1, {1 + MULTI_B}, at least {2 * MULTI_B} "
+                   f"past the first)")
     if bad:
         raise AssertionError(f"MultiTracker: {bad}")
     return launches
@@ -2480,10 +2579,6 @@ def _wall_ms(fn, dev: torch.device, reps: int = 5):
     return out, statistics.median(ms)
 
 
-def _launches() -> dict:
-    return {"fast_nms": fast_nms.launches, "gather_patches": gather_patches.launches}
-
-
 def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: str = "cuda") -> dict:
     """The facade and glue on the card (see the module docstring): map
     once (phase_mono saved the map), localize later over frames of the mono
@@ -2536,8 +2631,7 @@ def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: 
         bad.append("the map loaded on the CPU differs from the card's")
 
     # Localize later: frames of the mono path against the loaded map.
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     outs, ms = [], []
     for i in FACADE_LOC:
         _sync(dev)
@@ -2547,7 +2641,7 @@ def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: 
         ms.append((time.perf_counter() - t0) * 1e3)
         if i == FACADE_LOC[0]:
             reloc = (tr.reloc_path, tr.metrics.timer.samples["track.relocalize"][-1] * 1e3)
-    loc_launches = _launches()
+    loc_launches = launch_counts()
     first = FACADE_LOC[0]
     err0 = centre_err(*outs[0], first) if outs[0] is not None else float("inf")
     own = dict((fid, (R, t)) for fid, R, t, lost in mono["traj"] if not lost)
@@ -2649,12 +2743,11 @@ def phase_facade(smi: str, scene: StepWallScene, mono: dict, work: str, device: 
         update_ms.append((time.perf_counter() - t1) * 1e3)
 
     viewer.update = timed_update
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     try:
         res = rgbd_tum.run(settings, root, assoc, f"{work}/CameraTrajectory.txt", device=dev, viewer=viewer,
                            viewer_every=FACADE_VIEWER_EVERY)
-        drv_launches = _launches()
+        drv_launches = launch_counts()
         state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}/state", timeout=10).read())
         n_updates = len(update_ms)
         _, push_sites = count_syncs(res.system._push_viewer)  # 40 frames: a push is due
@@ -2690,7 +2783,9 @@ def _per_kind(rec: list, res: list) -> tuple:
 
 
 def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
-    """Phase 6's mono session with async_mapping: the mono gates, then ms
+    """Phase 6's mono session with async_mapping, fed at ASYNC_FPS: the mono
+    gates, the frames begun while a mapping job ran and the keyframes it
+    made NeedNewKeyFrame decline, then ms
     per frame by kind and the session's wall beside the synchronous
     session's (`sync`, phase 6 of this run), the mapping job's ms on its
     thread, the keyframe insertions that waited on a join, InterruptBA,
@@ -2706,14 +2801,25 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
     record = session_recorder(tr, rec)
     map_recs = watch_map_jobs(tr)
     init_gba = keep_first_global_ba(tr)
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     busy = [False]  # whether a mapping job was in flight when each frame began
+    declined = []  # whether NeedNewKeyFrame wanted a keyframe there but the job in flight stopped it
     with sync_sites() as sites:
         def on_frame(i, out):
             record(i, out)
             marks.append(len(sites))
+            d = {k: rec[-1]["counters"].get(k, 0) - (rec[-2]["counters"].get(k, 0) if i else 0)
+                 for k in ("map.interrupts", "frames.keyframe")}
+            declined.append(bool(d["map.interrupts"]) and not d["frames.keyframe"])
+            # The camera's rate, as ORB-SLAM2's examples feed a dataset: sleep
+            # out the rest of the frame interval.
+            spent = time.perf_counter() - begun[0]
+            if spent < 1 / ASYNC_FPS:
+                time.sleep(1 / ASYNC_FPS - spent)
             busy.append(tr._mapping_future is not None and not tr._mapping_future.done())
+            begun[0] = time.perf_counter()
+
+        begun = [time.perf_counter()]
 
         t0 = time.perf_counter()
         res = mono_session(system, frames, on_frame=on_frame)
@@ -2752,6 +2858,9 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
     mm_ms = [m for (m, x, b) in zip((m for _, m in res), kinds, busy) if x["kind"] == "motion model" and b]
     log(f"  tracking frames (motion model) begun while a mapping job ran: {_ms(mm_ms)}; the "
         f"synchronous session's motion-model frame {_ms(sync['ms_by_kind']['motion model'])}")
+    log(f"  fed at {ASYNC_FPS:g} fps: frames begun while a mapping job ran {sum(busy[1:-1])}/{len(busy) - 2} "
+        f"({sum(busy[1:-1]) / (len(busy) - 2):.1%}); keyframes NeedNewKeyFrame wanted but declined because "
+        f"the job ran (InterruptBA with no keyframe) {sum(declined)}")
     log(f"  the mapping job on its thread: {_ms(jobs)}; of which mapping_front "
         f"{_ms([v * 1e3 for v in st.get('map.front', [])])}, local BA chunk 1 "
         f"{_ms([v * 1e3 for v in st.get('map.local_ba1', [])])}, chunk 2 "
@@ -2778,8 +2887,8 @@ def phase_async_mono(scene: StepWallScene, smi: str, sync: dict) -> dict:
         bad.append(f"{n_kf} keyframes, {mapped} mapped points")
     if not ate < MONO_ATE_SHARE * span:
         bad.append(f"ATE {ate:.4f} >= {MONO_ATE_SHARE:.0%} of {span:.3f}")
-    if any(x["launches"][k] < 1 for x in kinds for k in launches):
-        bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if missing_kernels(kinds):
+        bad.append(f"frames short of a kernel: {missing_kernels(kinds)}")
     if tr._mapping_future is not None:
         bad.append("the mapping future was not drained by export_trajectory")
     if tr.loop_closer.n_loops_closed:
@@ -2875,8 +2984,7 @@ def phase_mapping_process(scene: StepWallScene, smi: str) -> dict:
     rm = tr._remote_mapper
     proc = rm._proc
     rec = []
-    fast_nms.launches = 0
-    gather_patches.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     res = depth_session(system, frames, on_frame=session_recorder(tr, rec))
     wall = time.perf_counter() - t0
@@ -2919,8 +3027,8 @@ def phase_mapping_process(scene: StepWallScene, smi: str) -> dict:
         f"(exit code {proc.returncode})")
     if kinds[0]["state"] != "OK" or tr.state != TrackingState.OK:
         bad.append(f"first frame {kinds[0]['state']}, end {tr.state.name}")
-    if any(x["launches"][k] < 1 for x in kinds for k in launches):
-        bad.append(f"a frame without both kernels: {[x['launches'] for x in kinds]}")
+    if missing_kernels(kinds):
+        bad.append(f"frames short of a kernel: {missing_kernels(kinds)}")
     if not n_session_jobs or n_session_jobs != tr.metrics.counters["frames.keyframe"]:
         bad.append(f"{n_session_jobs} jobs for {tr.metrics.counters['frames.keyframe']} keyframes")
     if not mirrored:
@@ -3148,6 +3256,7 @@ def main() -> int:
     imgs = torch.from_numpy(inp["imgs"]).cuda()
 
     err = timed("kernels", phase_kernels, imgs, rng)
+    pose_times = timed("pose kernel", phase_pose_kernel, smi)
     timed("device assert", phase_device_assert)
     args, launches, slice_graphs = timed("slice", phase_slice, inp, smi)
     session, (_, late), map_launches, per_frame = timed("map slice", phase_map, scene)
@@ -3193,15 +3302,19 @@ def main() -> int:
                             "stereo_sad": stereo_shape("gather sad")}),
     }
     main_b = kt[B]
+    total = {name: (launches[name] + map_launches[name] + graph_launches[name] + mono_launches[name]
+                    + stereo["launches"][name] + stereo["loc_launches"][name] + rgbd["launches"][name]
+                    + multi_launches[name] + facade_launches[name] + parallel_launches[name])
+             for name in KERNELS}
+
+    def counts(name: str) -> dict:
+        return {"launches": total[name],
+                "launches_per_frame": statistics.median(d[name] for d in per_frame),
+                "launches_per_stereo_frame": stereo["per_frame"][name],
+                "launches_per_rgbd_frame": rgbd["per_frame"][name]}
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (launches[name] + map_launches[name] + graph_launches[name] + mono_launches[name]
-                      + stereo["launches"][name] + stereo["loc_launches"][name]
-                      + rgbd["launches"][name] + multi_launches[name] + facade_launches[name]
-                      + parallel_launches[name]),
-         "launches_per_frame": statistics.median(d[name] for d in per_frame),
-         "launches_per_stereo_frame": stereo["per_frame"][name],
-         "launches_per_rgbd_frame": rgbd["per_frame"][name],
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, **counts(name),
          "max_abs_err": err[name],
          "ms": main_b["per_call"][name], "plain_ms": main_b["per_call"][name + " plain"],
          "device_ms": main_b["dev"][name],
@@ -3209,6 +3322,10 @@ def main() -> int:
          "library_ms": main_b["per_call"].get(name + " library"),
          "stereo_shapes": shapes}
         for name, (src, rep, shapes) in sources.items()
+    ] + [
+        {"name": "pose_optimization", "route": "cuda", "source": "tpuslam_torch/csrc/pose_lm.cu",
+         "replaces": None, **counts("pose_optimization"),
+         **pose_times[POSE_SHAPES[0][0]], "shapes": pose_times}
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

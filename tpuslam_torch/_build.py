@@ -66,6 +66,9 @@ _SIGNATURES = {
     # atlas, corner, out, n, Ha, Wa, stream
     "tpuslam_gather_patches_u8": [_P, _P, _P, _I, _I, _I, _P],
     "tpuslam_gather_patches_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # R0, t0, pts, uvr, info, valid, R, t, inliers, n_inliers, B, n,
+    # fx, fy, cx, cy, bf, chi2_mono, chi2_stereo, rounds, iters, stream
+    "tpuslam_pose_lm": [_P] * 10 + [_I, _I] + [_F] * 7 + [_I, _I, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """The kernels' launch counters (`fast_nms.launches`,
-`gather_patches.launches`), with a graph capture's launches held apart.
+`gather_patches.launches`, `pose_optimization.launches`), with a graph
+capture's launches held apart.
 
 A capture records a kernel's launch into its graph and runs nothing, so
 pipeline/graphs.py counts the launches a capture records and adds them at

@@ -36,10 +36,10 @@ same static buffers, so the CPU tests go through the same copies.
 
 No fallback: a capture or replay that fails raises. The kernel launch
 counters (ops/fast.py's fast_nms.launches, ops/patches.py's
-gather_patches.launches) do not move on a replay, so each graph records
-the launches it captured (the capturing thread's own tally,
-ops/launch_count.py) and adds them on each replay. Captures take turns
-across threads.
+gather_patches.launches, optim/pose.py's pose_optimization.launches) do
+not move on a replay, so each graph records the launches it captured (the
+capturing thread's own tally, ops/launch_count.py) and adds them on each
+replay. Captures take turns across threads.
 """
 
 from __future__ import annotations
@@ -55,8 +55,9 @@ import torch
 from tpuslam_torch.ops.fast import fast_nms
 from tpuslam_torch.ops.launch_count import capture_tally
 from tpuslam_torch.ops.patches import gather_patches
+from tpuslam_torch.optim.pose import pose_optimization
 
-_COUNTERS = (fast_nms, gather_patches)
+_COUNTERS = (fast_nms, gather_patches, pose_optimization)
 _CU_GRAPH_NODE_TYPE_KERNEL = 0  # CUgraphNodeType
 
 # One capture at a time in the process. Entering torch.cuda.graph

@@ -6,9 +6,10 @@ RGB-D frames (render_frames, render_stereo_frames, render_rgbd_frames), a
 TUM RGB-D folder of them written without PIL (png_bytes, write_tum_rgbd), a
 System session over them (mono_session, depth_session) and its ATE after a
 Sim3 or a rigid alignment (trajectory_ate), a drifted loop map for loop
-closing (build_loop_map), and a small consistent bundle-adjustment problem
+closing (build_loop_map), a small consistent bundle-adjustment problem
 with a map built from it (synthetic_ba_problem, map_from_ba_problem: the
-port's copies of tpuslam/testing.py's).
+port's copies of tpuslam/testing.py's), and a frame step's pose problem
+with a measure of two results' agreement (pose_problem, pose_disagreement).
 
 A coherent step: the keypoints of a frame rendered at pose A, back-projected
 through A's depth image, are both the last frame's points and the first
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from tpuslam_torch.geometry.camera import PinholeCamera, project
-from tpuslam_torch.geometry.se3 import se3_apply, so3_exp
+from tpuslam_torch.geometry.se3 import se3_apply, se3_exp, so3_exp
 from tpuslam_torch.geometry.sim3 import sim3_compose
 from tpuslam_torch.mapstate.core import (
     FrameFeatures,
@@ -43,7 +44,9 @@ from tpuslam_torch.mapstate.core import (
 from tpuslam_torch.ops.image import gaussian_blur
 from tpuslam_torch.ops.orb import ORBConfig, extract_orb, extract_orb_batched
 from tpuslam_torch.optim.ba import BAProblem
+from tpuslam_torch.optim.pose import PoseObs, edge_chi2
 from tpuslam_torch.optim.pose_graph import Sim3Edges, make_relative
+from tpuslam_torch.optim.robust import CHI2_MONO, CHI2_STEREO
 from tpuslam_torch.pipeline.steps import FUSED_ACCEPT, add_depth_points, fused_track_frame_image
 from tpuslam_torch.pipeline.tracker import pad_feats
 
@@ -243,6 +246,67 @@ def pose_errors(R, t, R_gt, t_gt):
     dR = np.einsum("bij,bkj->bik", R, np.asarray(R_gt, np.float64))
     cos = np.clip((np.trace(dR, axis1=1, axis2=2) - 1.0) / 2.0, -1.0, 1.0)
     return np.linalg.norm(t - t_gt, axis=-1), np.degrees(np.arccos(cos))
+
+
+def pose_problem(cam: PinholeCamera, seed: int, batch=(), n: int = 400, stereo_share: float = 0.6,
+                 valid_share: float = 0.9, tiny_z: int = 0, device="cpu"):
+    """A frame step's pose problem from a seed: (R0, t0, PoseObs). Points
+    3-40 m ahead, observations from the true pose with 1 px of noise, 15%
+    gross outliers, u_right on a share of the edges (the rest mono, -1),
+    octave information, a start ~0.02 off the truth. With `tiny_z`, the start
+    is R = I, t_z = 0 and the first `tiny_z` edges (valid) sit at depth
+    exactly +-1e-7 in its camera frame."""
+    g = np.random.default_rng(seed)
+    shape = (*batch, n)
+
+    def exp(xi):
+        return (x.numpy().astype(np.float64) for x in se3_exp(torch.tensor(xi, dtype=torch.float32)))
+
+    xi_true = np.concatenate([g.normal(0, 0.05, (*batch, 3)), g.normal(0, 0.3, (*batch, 3))], -1)
+    R_true, t_true = exp(xi_true)
+    pc = np.stack([g.uniform(-12, 12, shape), g.uniform(-3, 3, shape), g.uniform(3, 40, shape)], -1)
+    pts = np.einsum("...ji,...nj->...ni", R_true, pc - t_true[..., None, :])
+    u = cam.fx * pc[..., 0] / pc[..., 2] + cam.cx + g.normal(0, 1.0, shape)
+    v = cam.fy * pc[..., 1] / pc[..., 2] + cam.cy + g.normal(0, 1.0, shape)
+    ur = u - cam.bf / pc[..., 2] + g.normal(0, 1.0, shape)
+    out = g.uniform(size=shape) < 0.15
+    u = u + out * g.uniform(-60, 60, shape)
+    v = v + out * g.uniform(-60, 60, shape)
+    ur = np.where(g.uniform(size=shape) < stereo_share, ur, -1.0)
+    level = g.integers(0, 8, shape)
+    valid = g.uniform(size=shape) < valid_share
+    R0, t0 = exp(xi_true + g.normal(0, 0.02, xi_true.shape))
+    if tiny_z:
+        R0 = np.broadcast_to(np.eye(3), R0.shape).copy()
+        t0[..., 2] = 0.0
+        pts[..., :tiny_z, :] = np.stack([g.uniform(-1, 1, (*batch, tiny_z)), g.uniform(-1, 1, (*batch, tiny_z)),
+                                         g.choice([-1e-7, 1e-7], (*batch, tiny_z))], -1)
+        valid[..., :tiny_z] = True
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    obs = PoseObs(pts_w=f32(pts), uvr=f32(np.stack([u, v, ur], -1)),
+                  inv_sigma2=f32(1.0 / 1.44 ** level), valid=torch.tensor(valid, device=device))
+    return f32(R0), f32(t0), obs
+
+
+def pose_disagreement(cam: PinholeCamera, got, ref, obs: PoseObs) -> dict:
+    """How far one pose_optimization result (R, t, inliers, n_inliers) is
+    from another on the same problem: the largest |dR| and |dt|, whether
+    got's counts are its mask's, and how many mask entries differ, of them
+    how many far: an edge whose chi2 at ref's pose lies farther than a
+    relative 1e-4 from its threshold."""
+    R, t, inl, n = got
+    Rr, tr, inl_r, _ = ref
+    chi2 = edge_chi2(cam, Rr, tr, obs)
+    th = torch.where(obs.uvr[..., 2] >= 0, CHI2_STEREO, CHI2_MONO)
+    differ = inl != inl_r
+    far = (chi2 - th).abs() > 1e-4 * th
+    return dict(dR=float((R - Rr).abs().max()) if R.numel() else 0.0,
+                dt=float((t - tr).abs().max()) if t.numel() else 0.0,
+                counts_match=bool(torch.equal(n, inl.sum(-1))),
+                mask_differs=int(differ.sum()), mask_differs_far=int((differ & far).sum()))
 
 
 def scale_tables(cfg: ORBConfig, device="cpu"):
